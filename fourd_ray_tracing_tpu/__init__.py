@@ -1,19 +1,20 @@
-"""fourd_ray_tracing_tpu — a TPU-native differentiable 4D path tracer.
+"""fourd_ray_tracing_tpu — a differentiable 4D path tracer in JAX.
 
 A brand-new JAX/Pallas framework with the capabilities of the reference
 4D ray tracer (an SFML/GLSL interactive app): 4D camera orientation,
 hypersphere / hyperplane / 4D-cylinder / duocylinder / tiger / hypercube
 primitives, an emissive-diffuse-mirror BSDF, the Newton-inverted
 S^3-volume direction sampler, progressive accumulation — re-designed
-TPU-first:
+for accelerators:
 
 * all rendering math lives in pure, batched jnp functions (`ops/`),
   shared between a CPU-runnable oracle renderer (`models/renderer.py`)
-  and a fused Pallas TPU megakernel (`ops/pallas/`);
+  and a fused Pallas-Triton forward kernel for NVIDIA GPUs
+  (`ops/pallas/`);
 * scenes are differentiable parameter pytrees (`models/scene.py`), not
   compile-time shader text;
 * rays shard over a `jax.sharding.Mesh` with scene params replicated and
-  gradients `psum`-reduced over ICI (`parallel/`);
+  gradients `psum`-reduced across devices (`parallel/`);
 * the host runtime (config parsing, camera/input state machine) has a
   native C++ implementation (`native/`) mirroring the reference's C++
   host layer, with a pure-Python fallback.

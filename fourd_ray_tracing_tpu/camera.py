@@ -152,7 +152,7 @@ VIEWS_ALL: Sequence[str] = ("yxz", "ywz", "yxw")
 
 
 def batched_view_bases(orient: Orientation, views: Sequence[str] = VIEWS_ALL):
-    """Stack view bases along a leading axis: the TPU-native replacement
+    """Stack view bases along a leading axis: the batched replacement
     for three sequential window draws — one launch renders all sections."""
     tops, rights = [], []
     for v in views:

@@ -35,12 +35,10 @@ Estimator decisions (documented per SURVEY §7 "hard parts"):
 * Memory: each sample's trace is wrapped in `jax.checkpoint`
   (models/renderer.py:render_light_tile, cfg.remat=True) so the backward
   pass recomputes trajectories instead of storing every bounce's ray
-  state — the HBM-friendly choice on TPU.
+  state, so device memory holds one sample's residuals at a time.
 """
 from __future__ import annotations
 
-import dataclasses
-import functools
 from typing import Callable, Optional
 
 import jax
@@ -57,9 +55,6 @@ from fourd_ray_tracing_tpu.models.renderer import (
     _expand_cam_vec,
 )
 from fourd_ray_tracing_tpu.models.scene import Scene
-from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-    render_loss_and_grad_pallas,
-)
 from fourd_ray_tracing_tpu.ops.vec4 import Vec4, dot
 from fourd_ray_tracing_tpu.parallel.mesh import sharded_render_image
 
@@ -128,8 +123,8 @@ def drop_sphere(scene: Scene, sphere_index: int) -> Scene:
 
 # --- Generalized per-primitive silhouette coverage ---------------------------
 #
-# VERDICT r2 #5: soft-silhouette gradients must reach EVERY primitive
-# family, not just spheres. Each coverage function below is a
+# Soft-silhouette gradients reach EVERY primitive family, not just
+# spheres. Each coverage function below is a
 # differentiable per-pixel alpha approximating "does the primary ray hit
 # object X": sigmoid-relaxed versions of the same hit tests the hard
 # renderer runs (shader.frag:189-400), so alpha saturates to the hard
@@ -300,70 +295,6 @@ def drop_object(scene: Scene, object_ref) -> Scene:
     raise ValueError(f"unknown object kind: {kind!r}")
 
 
-def zero_object(scene: Scene, object_ref) -> Scene:
-    """The scene with the referenced object made a GUARANTEED MISS while
-    keeping the pytree structure (the same-structure analogue of
-    `drop_object`, required by the one-dispatch soft-silhouette pair —
-    megakernel.render_light_pallas_multi shares one packed layout, one
-    rebuild closure, and one set of static hints across both scenes).
-
-    Exactness: circle-family primitives (spheres, cylinders, the
-    duocylinder, all four tiger cylinders) use r = 0 — the discriminant
-    becomes -perp2 <= 0, the tangency mask kills every lane, including
-    exact-through-center rays where perp2 == 0 (tangent is <=). The
-    hypercube uses r = -1: its cells' extent tests |e| <= r can never
-    pass. Rendered light is therefore BIT-IDENTICAL to `drop_object`'s
-    (tests/test_soft.py::test_zero_object_matches_drop_object), and the
-    zeroed object's dead-branch cotangents are exact zeros (the 1/r
-    resolver guards in models/scene.py and ops/geometry.py).
-
-    Hyperplanes cannot be zero-emulated (an infinite primitive has no
-    miss radius; offset-at-infinity breaks the wall-pair fold) —
-    ``("spaces", i)`` raises, and soft losses fall back to the
-    two-dispatch drop_object path for them.
-    """
-    kind, idx = object_ref
-
-    def zr(spec, r):
-        return spec._replace(r=jnp.zeros_like(jnp.asarray(spec.r)) + r)
-
-    if kind == "spheres":
-        spheres = tuple(
-            zr(s, 0.0) if k == idx else s for k, s in enumerate(scene.spheres)
-        )
-        return scene._replace(spheres=spheres)
-    if kind == "cylinders":
-        cyls = tuple(
-            zr(c, 0.0) if k == idx else c
-            for k, c in enumerate(scene.cylinders)
-        )
-        return scene._replace(cylinders=cyls)
-    if kind == "cylinders_union":
-        c1, c2 = scene.cylinders_union
-        return scene._replace(cylinders_union=(zr(c1, 0.0), zr(c2, 0.0)))
-    if kind == "tiger":
-        tg = scene.tiger
-        return scene._replace(tiger=tg._replace(
-            inner_cyl1=zr(tg.inner_cyl1, 0.0), outer_cyl1=zr(tg.outer_cyl1, 0.0),
-            inner_cyl2=zr(tg.inner_cyl2, 0.0), outer_cyl2=zr(tg.outer_cyl2, 0.0),
-        ))
-    if kind == "hypercube":
-        hc = scene.hypercube
-        # Zero the generator half-width AND every cell's (the spec-path
-        # cells carry their own copy; the fast paired fold reads hc.r).
-        return scene._replace(hypercube=hc._replace(
-            r=jnp.zeros_like(jnp.asarray(hc.r)) - 1.0,
-            cubes=tuple(
-                c._replace(r=jnp.zeros_like(jnp.asarray(c.r)) - 1.0)
-                for c in hc.cubes
-            ),
-        ))
-    raise ValueError(
-        f"zero_object does not support kind {kind!r} (hyperplanes fall "
-        "back to drop_object)"
-    )
-
-
 def soft_image_loss(
     scene: Scene,
     camera: Camera,
@@ -402,494 +333,45 @@ def soft_image_loss(
     return jnp.mean((img - target) ** 2)
 
 
-# --- Pallas-accelerated training path ---------------------------------------
-#
-# The value-and-grad megakernel (ops/pallas/gradkernel.py) computes loss
-# AND all scene/camera parameter gradients in one VMEM-resident pass.
-# `pallas_image_loss` wraps it in jax.custom_vjp so jax.value_and_grad /
-# optax pipelines use it transparently: the forward runs the kernel once
-# (gradients become residuals), the backward just scales them by the
-# incoming cotangent — one kernel launch per train step.
-
-
-def with_frozen_hints(cfg: RenderConfig, scene: Scene) -> RenderConfig:
-    """Derive the production forward's static hints from a CONCRETE scene
-    and enable the grad kernel's freeze_hints contract on them.
-
-    The returned cfg makes `pallas_image_loss` / `make_train_step`
-    (impl="pallas") run the value-and-grad kernel with the same hinted
-    wall/axis folds as the forward megakernel — loss bit-identical, all
-    gradients exact EXCEPT hyperplane normals and hinted axis vectors,
-    which are frozen to zero (RenderConfig.freeze_hints). Call it once,
-    outside jit, before building the train step (hints are static jit
-    arguments; inside jit the scene is a tracer and nothing can be
-    derived).
-    """
-    from fourd_ray_tracing_tpu.models.scene import (
-        axis_alignment_hints,
-        plane_norm_hints,
-        plane_pair_hints,
-    )
-
-    cfg = dataclasses.replace(cfg, freeze_hints=True)
-    if cfg.grad_sample_chunk == 1:
-        # Pass-2 sample chunking (RenderConfig.grad_sample_chunk): the
-        # largest divisor of samples <= 8 — measured monotone gains to
-        # G=8 with no VMEM spill on v5e at 8 spp; capped at 8 as the
-        # tested envelope for high-spp configs.
-        g = max(g for g in range(1, min(cfg.samples, 8) + 1)
-                if cfg.samples % g == 0)
-        cfg = dataclasses.replace(cfg, grad_sample_chunk=g)
-    if cfg.intersect != "fast":
-        return cfg
-    if cfg.plane_hints is None:
-        hints = plane_norm_hints(scene)
-        if hints is not None:
-            cfg = dataclasses.replace(
-                cfg, plane_hints=hints, plane_pairs=plane_pair_hints(scene, hints)
-            )
-    if cfg.axis_hints is None:
-        ah = axis_alignment_hints(scene)
-        if ah is not None:
-            cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return cfg
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def pallas_image_loss(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed, target
-) -> jnp.ndarray:
-    """MSE between the rendered image and target — Pallas forward AND
-    backward (identical estimator to `image_loss` at the same seed)."""
-    loss, _ = render_loss_and_grad_pallas(scene, camera, cfg, seed, target)
-    return loss
-
-
-def _pallas_image_loss_fwd(scene, camera, cfg, seed, target):
-    loss, grads = render_loss_and_grad_pallas(scene, camera, cfg, seed, target)
-    return loss, (grads, seed, target)
-
-
-def _pallas_image_loss_bwd(cfg, res, ct):
-    (g_scene, g_cam), seed, target = res
-    scale = lambda g: g * ct
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return (
-        jax.tree_util.tree_map(scale, g_scene),
-        jax.tree_util.tree_map(scale, g_cam),
-        zero_seed,
-        jnp.zeros_like(target),
-    )
-
-
-pallas_image_loss.defvjp(_pallas_image_loss_fwd, _pallas_image_loss_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 5))
-def pallas_image_loss_sharded(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed, target, mesh
-) -> jnp.ndarray:
-    """`pallas_image_loss` with the value-and-grad kernel's tile axis
-    sharded over ``mesh`` (gradkernel.sharded_loss_and_grad_pallas): the
-    multi-chip production training path. Loss and gradients equal the
-    single-device kernel up to psum reduction order."""
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_loss_and_grad_pallas,
-    )
-
-    loss, _ = sharded_loss_and_grad_pallas(scene, camera, cfg, seed, target, mesh)
-    return loss
-
-
-def _pallas_image_loss_sharded_fwd(scene, camera, cfg, seed, target, mesh):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_loss_and_grad_pallas,
-    )
-
-    loss, grads = sharded_loss_and_grad_pallas(
-        scene, camera, cfg, seed, target, mesh
-    )
-    return loss, (grads, seed, target)
-
-
-def _pallas_image_loss_sharded_bwd(cfg, mesh, res, ct):
-    (g_scene, g_cam), seed, target = res
-    scale = lambda g: g * ct
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return (
-        jax.tree_util.tree_map(scale, g_scene),
-        jax.tree_util.tree_map(scale, g_cam),
-        zero_seed,
-        jnp.zeros_like(target),
-    )
-
-
-pallas_image_loss_sharded.defvjp(
-    _pallas_image_loss_sharded_fwd, _pallas_image_loss_sharded_bwd
-)
-
-
-# --- Arbitrary losses over kernel renders ------------------------------------
-#
-# `pallas_render_light` is the MEAN-light render as a custom-vjp
-# primitive: forward = the production megakernel, backward = the pass-2
-# light-VJP kernel (gradkernel.render_light_vjp_pallas) with whatever
-# per-pixel cotangent the outer jnp computation produces. Any
-# differentiable jnp function of rendered light — tone maps, soft
-# blends, perceptual losses — trains on the kernel path with zero jnp
-# re-rendering.
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def pallas_render_light(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed
-) -> jnp.ndarray:
-    """Differentiable mean-light render, kernel forward AND backward.
-
-    Semantics equal models.renderer.render_light with
-    rng_mode="per_sample" (same estimator, same streams); gradients are
-    the estimator's at fixed RNG, like pallas_image_loss. Pass a
-    `with_frozen_hints` cfg to run both directions with the production
-    static hints (freeze contract applies to the backward)."""
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import render_light_pallas
-
-    return render_light_pallas(scene, camera, cfg, seed)
-
-
-def _pallas_render_light_fwd(scene, camera, cfg, seed):
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import render_light_pallas
-
-    light = render_light_pallas(scene, camera, cfg, seed)
-    return light, (scene, camera, seed)
-
-
-def _pallas_render_light_bwd(cfg, res, cot_light):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        render_light_vjp_pallas,
-    )
-
-    scene, camera, seed = res
-    g_scene, g_cam = render_light_vjp_pallas(scene, camera, cfg, seed, cot_light)
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return g_scene, g_cam, zero_seed
-
-
-pallas_render_light.defvjp(_pallas_render_light_fwd, _pallas_render_light_bwd)
-
-
-# --- One-dispatch soft-silhouette pair ---------------------------------------
-#
-# `pallas_render_light_pair` renders (scene, without) — same pytree
-# structure via `zero_object` — as TWO frame rows of ONE megakernel
-# dispatch (render_light_pallas_multi), and its backward runs ONE
-# two-row light-VJP dispatch (render_light_vjp_pallas_multi). This
-# halves the soft step's launches (4 -> 2) vs the two
-# `pallas_render_light` nodes it replaces (VERDICT r4 #5).
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def pallas_render_light_pair(
-    scene_a: Scene, scene_b: Scene, camera: Camera, cfg: RenderConfig, seed
-) -> jnp.ndarray:
-    """Mean-light renders of two same-structure scenes at one seed,
-    stacked on a leading axis (2, ...): ONE kernel dispatch forward, one
-    backward. Row i is bit-identical to `pallas_render_light(scene_i)`.
-    Differentiable w.r.t. both scenes and the camera (camera cotangents
-    sum over the pair)."""
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
-        render_light_pallas_multi,
-    )
-
-    return render_light_pallas_multi((scene_a, scene_b), camera, cfg, seed)
-
-
-def _pair_fwd(scene_a, scene_b, camera, cfg, seed):
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
-        render_light_pallas_multi,
-    )
-
-    out = render_light_pallas_multi((scene_a, scene_b), camera, cfg, seed)
-    return out, (scene_a, scene_b, camera, seed)
-
-
-def _pair_bwd(cfg, res, cot):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        render_light_vjp_pallas_multi,
-    )
-
-    scene_a, scene_b, camera, seed = res
-    (g_a, g_b), g_cam = render_light_vjp_pallas_multi(
-        (scene_a, scene_b), camera, cfg, seed, cot
-    )
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return g_a, g_b, g_cam, zero_seed
-
-
-pallas_render_light_pair.defvjp(_pair_fwd, _pair_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 5))
-def pallas_render_light_pair_sharded(
-    scene_a: Scene, scene_b: Scene, camera: Camera, cfg: RenderConfig, seed,
-    mesh,
-) -> jnp.ndarray:
-    """`pallas_render_light_pair` with the tile axis of both dispatches
-    sharded over ``mesh`` (megakernel.sharded_render_light_pallas_multi /
-    gradkernel.sharded_render_light_vjp_pallas_multi) — the multi-chip
-    soft-silhouette pair. Rows bit-identical to the single-device pair;
-    gradients equal up to psum order."""
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
-        sharded_render_light_pallas_multi,
-    )
-
-    return sharded_render_light_pallas_multi(
-        (scene_a, scene_b), camera, cfg, seed, mesh
-    )
-
-
-def _pair_sharded_fwd(scene_a, scene_b, camera, cfg, seed, mesh):
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
-        sharded_render_light_pallas_multi,
-    )
-
-    out = sharded_render_light_pallas_multi(
-        (scene_a, scene_b), camera, cfg, seed, mesh
-    )
-    return out, (scene_a, scene_b, camera, seed)
-
-
-def _pair_sharded_bwd(cfg, mesh, res, cot):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_render_light_vjp_pallas_multi,
-    )
-
-    scene_a, scene_b, camera, seed = res
-    (g_a, g_b), g_cam = sharded_render_light_vjp_pallas_multi(
-        (scene_a, scene_b), camera, cfg, seed, cot, mesh
-    )
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return g_a, g_b, g_cam, zero_seed
-
-
-pallas_render_light_pair_sharded.defvjp(_pair_sharded_fwd, _pair_sharded_bwd)
-
-
-# --- Fused one-dispatch soft loss --------------------------------------------
-#
-# `_soft_kernel_loss` runs gradkernel.render_soft_loss_and_grad_pallas:
-# BOTH rows, the in-kernel blend MSE, and every gradient in ONE kernel
-# dispatch (the "without" row is the same packed params with the
-# object's radius slots statically zeroed — gradkernel.soft_zero_map).
-# The coverage alpha stays an ordinary differentiable jnp input: the
-# kernel returns its cotangent plane and jax's AD carries it back
-# through `object_coverage`, so silhouette (position/radius) gradients
-# keep flowing outside the kernel. Measured: 12.7 ms/step on room
-# 1280x720x8 vs 22.3 ms for the two-dispatch pair form
-# (tools/soft_ablate.py).
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 6))
-def _soft_kernel_loss(scene, camera, alpha, cfg, seed, target, object_ref):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        render_soft_loss_and_grad_pallas,
-    )
-
-    loss, _, _ = render_soft_loss_and_grad_pallas(
-        scene, camera, cfg, seed, target, alpha, object_ref
-    )
-    return loss
-
-
-def _soft_kernel_loss_fwd(scene, camera, alpha, cfg, seed, target, object_ref):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        render_soft_loss_and_grad_pallas,
-    )
-
-    loss, grads, g_alpha = render_soft_loss_and_grad_pallas(
-        scene, camera, cfg, seed, target, alpha, object_ref
-    )
-    return loss, (grads, g_alpha, seed, target)
-
-
-def _soft_kernel_loss_bwd(cfg, object_ref, res, ct):
-    (g_scene, g_cam), g_alpha, seed, target = res
-    scale = lambda g: g * ct
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return (
-        jax.tree_util.tree_map(scale, g_scene),
-        jax.tree_util.tree_map(scale, g_cam),
-        g_alpha * ct,
-        zero_seed,
-        jnp.zeros_like(target),
-    )
-
-
-_soft_kernel_loss.defvjp(_soft_kernel_loss_fwd, _soft_kernel_loss_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 6, 7))
-def _soft_kernel_loss_sharded(
-    scene, camera, alpha, cfg, seed, target, object_ref, mesh
-):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_soft_loss_and_grad_pallas,
-    )
-
-    loss, _, _ = sharded_soft_loss_and_grad_pallas(
-        scene, camera, cfg, seed, target, alpha, object_ref, mesh
-    )
-    return loss
-
-
-def _soft_kernel_loss_sharded_fwd(
-    scene, camera, alpha, cfg, seed, target, object_ref, mesh
-):
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_soft_loss_and_grad_pallas,
-    )
-
-    loss, grads, g_alpha = sharded_soft_loss_and_grad_pallas(
-        scene, camera, cfg, seed, target, alpha, object_ref, mesh
-    )
-    return loss, (grads, g_alpha, seed, target)
-
-
-def _soft_kernel_loss_sharded_bwd(cfg, object_ref, mesh, res, ct):
-    (g_scene, g_cam), g_alpha, seed, target = res
-    scale = lambda g: g * ct
-    zero_seed = np.zeros(jnp.shape(seed), jax.dtypes.float0)
-    return (
-        jax.tree_util.tree_map(scale, g_scene),
-        jax.tree_util.tree_map(scale, g_cam),
-        g_alpha * ct,
-        zero_seed,
-        jnp.zeros_like(target),
-    )
-
-
-_soft_kernel_loss_sharded.defvjp(
-    _soft_kernel_loss_sharded_fwd, _soft_kernel_loss_sharded_bwd
-)
-
-
-def _stop_frozen_for_coverage(scene: Scene, cfg: RenderConfig) -> Scene:
-    """Under the freeze-hints contract, the coverage-alpha AD path must
-    not leak gradients into the frozen leaves either (hyperplane
-    normals, hinted composite axes) — the kernel zeroes ITS copies
-    (gradkernel._freeze_grads), and this stops the jnp `object_coverage`
-    path at the same leaves: each frozen leaf is routed through
-    stop_gradient via an exact 0/1 mask (values bit-unchanged)."""
-    if not cfg.freeze_hints or (
-        cfg.plane_hints is None and cfg.axis_hints is None
-    ):
-        return scene
-    from fourd_ray_tracing_tpu.models.scene import freeze_hint_grads
-
-    ones = jax.tree_util.tree_map(jnp.ones_like, scene)
-    mask = freeze_hint_grads(ones, cfg.plane_hints, cfg.axis_hints)
-    return jax.tree_util.tree_map(
-        lambda x, m: x * m + jax.lax.stop_gradient(x) * (1.0 - m),
-        scene, mask,
-    )
-
-
-def _hints_for_dropped(cfg: RenderConfig, object_ref) -> RenderConfig:
-    """Statically remap cfg's scene hints for `drop_object(scene, ref)`
-    so the without-object render keeps (most of) the hinted fold.
-    Hints are static tuples indexed by primitive position, so dropping a
-    primitive shifts/removes entries: spaces drop their plane_hints row
-    (wall PAIRS are conservatively disabled — indices shift); cylinders
-    drop their axis-hint entry; composite objects null their field."""
-    kind, idx = object_ref
-    if kind == "spaces" and cfg.plane_hints is not None:
-        hints = tuple(h for k, h in enumerate(cfg.plane_hints) if k != idx)
-        cfg = dataclasses.replace(
-            cfg, plane_hints=hints or None, plane_pairs=None
+def frame_seeds(seed, frames: int):
+    """The F per-frame seeds a minibatch step derives from its scalar
+    seed: ``seed * F + arange(F)``, so consecutive steps never share a
+    frame."""
+    base = jnp.asarray(seed, jnp.uint32) * np.uint32(frames)
+    return base + jnp.arange(frames, dtype=jnp.uint32)
+
+
+def minibatch_loss(loss_fn: Callable, frames: int) -> Callable:
+    """``loss_fn(scene, seed, target)`` averaged over ``frames``
+    independent estimator samples (`frame_seeds`) in one jit. The frames
+    run in sequence (`lax.map`), so device memory holds one frame's
+    residuals at a time. ``frames == 1`` returns ``loss_fn`` itself."""
+    if frames <= 1:
+        return loss_fn
+
+    def mean_loss(scene, seed, target):
+        losses = jax.lax.map(
+            lambda s: loss_fn(scene, s, target), frame_seeds(seed, frames)
         )
-    ah = cfg.axis_hints
-    if ah is not None:
-        if kind == "cylinders" and ah.cylinders:
-            ah = ah._replace(
-                cylinders=tuple(
-                    h for k, h in enumerate(ah.cylinders) if k != idx
-                )
-            )
-        elif kind == "cylinders_union":
-            ah = ah._replace(cylinders_union=None)
-        elif kind == "hypercube":
-            ah = ah._replace(hypercube=None)
-        elif kind == "tiger":
-            ah = ah._replace(tiger=None)
-        if (not any(ah.cylinders) and ah.cylinders_union is None
-                and ah.hypercube is None and ah.tiger is None):
-            ah = None
-        cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return cfg
+        return jnp.mean(losses)
+
+    return mean_loss
 
 
-def soft_image_loss_pallas(
-    scene: Scene,
-    camera: Camera,
-    cfg: RenderConfig,
-    seed,
-    target: jnp.ndarray,
-    object_ref,
-    edge_width: float = 0.05,
-    mesh=None,
-) -> jnp.ndarray:
-    """`soft_image_loss` entirely on the production kernels (VERDICT r3
-    #5: soft geometry optimization no longer pays jnp-pipeline speed).
+def _train_loss(cfg, camera, mesh, soft_sphere_index, edge_width,
+                soft_object_ref, frames_per_step):
+    """loss(scene, seed, target) shared by both train-step builders."""
+    soft = soft_object_ref is not None or soft_sphere_index is not None
 
-    Every zero-emulatable object kind (spheres, cylinders, duocylinder,
-    tiger, hypercube) runs the FUSED soft value-and-grad megakernel —
-    both rows, the in-kernel alpha blend + MSE, and every gradient in
-    ONE dispatch per step (`_soft_kernel_loss` over
-    gradkernel.render_soft_loss_and_grad_pallas; with a mesh the tile
-    axis shards over it in the same single dispatch). The coverage
-    alpha stays a differentiable jnp input whose cotangent the kernel
-    returns, so silhouette (position/radius) gradients flow through
-    `object_coverage` by ordinary AD.
-
-    Hyperplane refs fall back to the two-node `pallas_render_light` +
-    `drop_object` path with the jnp blend (an infinite primitive has no
-    miss radius). Same estimator as the jnp soft loss at the same seed.
-    """
-    if object_ref[0] == "spaces":
-        if mesh is not None:
-            raise ValueError(
-                "mesh-sharded soft training supports zero-emulatable "
-                "object kinds only (hyperplanes have no miss radius)"
-            )
-        from fourd_ray_tracing_tpu.ops.sky import light_to_color
-        from fourd_ray_tracing_tpu.ops.vec4 import Vec3
-
-        def tonemap(light):
-            c = light_to_color(
-                Vec3(light[..., 0], light[..., 1], light[..., 2]),
-                jnp.float32(cfg.light_coefficient),
-            )
-            return c.stack(axis=-1)
-
-        without = drop_object(scene, object_ref)
-        lw = pallas_render_light(scene, camera, cfg, seed)
-        lwo = pallas_render_light(
-            without, camera, _hints_for_dropped(cfg, object_ref), seed
+    def loss_fn(scene, seed, target):
+        if not soft:
+            return image_loss(scene, camera, cfg, seed, target, mesh)
+        return soft_image_loss(
+            scene, camera, cfg, seed, target, soft_sphere_index or 0,
+            edge_width, mesh, object_ref=soft_object_ref,
         )
-        img_w, img_wo = tonemap(lw), tonemap(lwo)
-        alpha = object_coverage(
-            scene, object_ref, camera, cfg, edge_width
-        )[..., None]
-        img = alpha * img_w + (1.0 - alpha) * img_wo
-        return jnp.mean((img - target) ** 2)
 
-    alpha = object_coverage(
-        _stop_frozen_for_coverage(scene, cfg), object_ref, camera, cfg,
-        edge_width,
-    )
-    if mesh is not None:
-        return _soft_kernel_loss_sharded(
-            scene, camera, alpha, cfg, seed, target, object_ref, mesh
-        )
-    return _soft_kernel_loss(scene, camera, alpha, cfg, seed, target, object_ref)
+    return minibatch_loss(loss_fn, frames_per_step)
 
 
 def make_train_step(
@@ -900,12 +382,12 @@ def make_train_step(
     param_filter: Optional[Callable] = None,
     soft_sphere_index: Optional[int] = None,
     edge_width: float = 0.05,
-    impl: str = "xla",
     soft_object_ref=None,
     frames_per_step: int = 1,
 ):
     """Jitted inverse-rendering step: optimize scene params toward target
-    images (SURVEY §7 step 5; BASELINE.json config 5).
+    images (SURVEY §7 step 5; BASELINE.json config 5). The gradient is
+    `jax.value_and_grad` of the jnp pipeline.
 
     ``param_filter(grads)`` may zero out gradients of parameters that
     should stay frozen (e.g. wall positions while fitting a sphere).
@@ -914,63 +396,17 @@ def make_train_step(
     ``soft_object_ref`` does the same for ANY primitive (see
     `object_coverage`).
     When a mesh is given, rays/samples shard across it and the scene
-    gradient arrives via the AD transpose of the replicated inputs — an
-    all-reduce over ICI fused into the backward pass.
-    ``impl="pallas"`` trains through the value-and-grad megakernel
-    (`pallas_image_loss`): one kernel launch computes loss + all
-    gradients; with a mesh the kernel's tile axis shards over it
-    (`pallas_image_loss_sharded` — one psum of loss+grads over ICI);
-    soft-silhouette losses run the FUSED soft kernel — both rows, the
-    in-kernel alpha blend + MSE, and every gradient in ONE dispatch
-    per step (`soft_image_loss_pallas` via
-    gradkernel.render_soft_loss_and_grad_pallas); with a mesh that
-    single dispatch tile-shards over it.
-
-    ``frames_per_step`` > 1 (kernel path, hard loss only) averages that
-    many independent estimator samples per optimizer step — the frame
-    axis of ONE (frames, tiles)-grid kernel dispatch (the minibatch
-    step). Gradients are lower-variance AND the per-ray throughput
-    gains the forward kernel's frames_per_launch amortization: measured
-    1.165 Gray/s for the full adam step at frames_per_step=4 on room
-    1280x720x8x4 vs 0.849 for the 1-frame step (BENCH_r05_session
-    train_minibatch4; raw kernel 1.176/1.115 at F=4/8 — 4 is the knee).
+    gradient arrives via the AD transpose of the replicated inputs: an
+    all-reduce across the devices, fused into the backward pass.
+    ``frames_per_step`` > 1 averages that many independent estimator
+    samples per optimizer step (`minibatch_loss`): lower-variance
+    gradients for F times the rays.
 
     Returns a step whose metrics dict carries loss and the global
     gradient norm (SURVEY §5 metrics/logging).
     """
-    soft = soft_object_ref is not None or soft_sphere_index is not None
-    if frames_per_step > 1 and (impl != "pallas" or soft):
-        raise ValueError(
-            "frames_per_step > 1 is the value-and-grad megakernel's "
-            "minibatch grid (impl='pallas', hard loss only)"
-        )
-
-    def expand_seed(seed):
-        if frames_per_step <= 1:
-            return seed
-        base = jnp.asarray(seed, jnp.uint32) * np.uint32(frames_per_step)
-        return base + jnp.arange(frames_per_step, dtype=jnp.uint32)
-
-    def loss_fn(scene, seed, target):
-        seed = expand_seed(seed)
-        if impl == "pallas":
-            if soft:
-                ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
-                return soft_image_loss_pallas(
-                    scene, camera, cfg, seed, target, ref, edge_width,
-                    mesh=mesh,
-                )
-            if mesh is not None:
-                return pallas_image_loss_sharded(
-                    scene, camera, cfg, seed, target, mesh
-                )
-            return pallas_image_loss(scene, camera, cfg, seed, target)
-        if not soft:
-            return image_loss(scene, camera, cfg, seed, target, mesh)
-        return soft_image_loss(
-            scene, camera, cfg, seed, target, soft_sphere_index or 0,
-            edge_width, mesh, object_ref=soft_object_ref,
-        )
+    loss_fn = _train_loss(cfg, camera, mesh, soft_sphere_index, edge_width,
+                          soft_object_ref, frames_per_step)
 
     @jax.jit
     def step(scene, opt_state, seed, target):
@@ -992,23 +428,15 @@ def make_packed_train_step(
     scene_template: Scene,
     param_filter: Optional[Callable] = None,
     frames_per_step: int = 1,
+    mesh=None,
 ):
-    """The PRODUCTION train loop: the value-and-grad megakernel with the
-    optimizer running in packed vector space (VERDICT r4 #1).
-    ``frames_per_step`` > 1 runs the kernel's minibatch frame grid (see
-    make_train_step) — the step still takes a SCALAR seed and derives
-    the frame seeds statically.
-
-    `make_train_step(impl="pallas")` leaves packed space between the
-    kernel and the optimizer: the gradient is rebuilt into a ~150-leaf
-    scene pytree and adam runs per leaf — measured ~2.0 ms/step of
-    per-leaf kernel launches plus ~0.5 ms of rebuild slices at the
-    north-star workload (tools/train_ablate.py), on a ~13 ms step. This
-    variant keeps the whole training state as the kernel's own flat
-    (n_scene,) vector: one fused adam chain, no rebuild in the loop.
-    Updates are BITWISE the pytree step's (optimizer math is
-    elementwise; tests/test_gradkernel.py::
-    test_packed_train_step_matches_pytree).
+    """The train loop with the optimizer in packed vector space: the
+    whole training state is ONE flat (n_scene,) float32 vector, so adam
+    is one fused elementwise chain instead of one update per scene leaf
+    (~100-250 leaves), and the state checkpoints as one array
+    (`utils.checkpoint.save_train_state`). The loss and gradient are
+    `jax.value_and_grad` of the same loss as `make_train_step` composed
+    with ``unpack``; ``frames_per_step`` and ``mesh`` mean the same.
 
     Returns ``(step, init, unpack)``:
 
@@ -1018,44 +446,48 @@ def make_packed_train_step(
     * ``unpack(scene_vec) -> Scene`` — materialize the pytree (for
       checkpointing / rendering outside the loop)
 
-    ``cfg`` should come from `with_frozen_hints` (as for the pytree
-    path); ``scene_template`` fixes the static scene structure.
+    ``scene_template`` fixes the static scene structure.
     ``param_filter`` (same contract as make_train_step's: a pytree ->
-    pytree gradient zero-mask) is converted to a static packed 0/1
-    vector applied to the gradient before the optimizer — identical
-    semantics to the pytree step's filtering.
+    pytree gradient zero-mask) becomes a static packed 0/1 vector
+    applied to the gradient before the optimizer.
     """
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        make_packed_loss_and_grad,
-    )
+    leaves, treedef = jax.tree_util.tree_flatten(scene_template)
+    shapes = [jnp.shape(l) for l in leaves]
+    sizes = [int(np.prod(s)) for s in shapes]
 
-    loss_and_grad, vec0, unpack = make_packed_loss_and_grad(
-        scene_template, camera, cfg
-    )
+    def pack(scene: Scene):
+        return jnp.concatenate([
+            jnp.asarray(l, jnp.float32).reshape(-1)
+            for l in jax.tree_util.tree_leaves(scene)
+        ])
+
+    def unpack(scene_vec):
+        out, off = [], 0
+        for shape, size in zip(shapes, sizes):
+            out.append(scene_vec[off:off + size].reshape(shape))
+            off += size
+        return jax.tree_util.tree_unflatten(treedef, out)
+
     filter_vec = None
     if param_filter is not None:
         ones = jax.tree_util.tree_map(
             lambda l: jnp.ones_like(jnp.asarray(l, jnp.float32)),
             scene_template,
         )
-        filter_vec = jnp.concatenate([
-            jnp.asarray(l, jnp.float32).reshape(-1)
-            for l in jax.tree_util.tree_leaves(param_filter(ones))
-        ])
+        filter_vec = pack(param_filter(ones))
+
+    loss_fn = _train_loss(cfg, camera, mesh, None, 0.05, None,
+                          frames_per_step)
 
     def init(scene: Scene):
-        leaves = jax.tree_util.tree_leaves(scene)
-        vec = jnp.concatenate([
-            jnp.asarray(l, jnp.float32).reshape(-1) for l in leaves
-        ])
+        vec = pack(scene)
         return vec, optimizer.init(vec)
 
     @jax.jit
     def step(scene_vec, opt_state, seed, target):
-        if frames_per_step > 1:
-            seed = (jnp.asarray(seed, jnp.uint32) * np.uint32(frames_per_step)
-                    + jnp.arange(frames_per_step, dtype=jnp.uint32))
-        loss, g = loss_and_grad(scene_vec, seed, target)
+        loss, g = jax.value_and_grad(
+            lambda v: loss_fn(unpack(v), seed, target)
+        )(scene_vec)
         if filter_vec is not None:
             g = g * filter_vec
         updates, opt_state = optimizer.update(g, opt_state, scene_vec)

@@ -2,10 +2,10 @@
 
 This is the executable spec (SURVEY §4.1's "golden-image oracle") and at
 the same time the production differentiable forward: a pure jnp pipeline
-over SoA ray batches that runs on CPU (tests) and TPU via jit/XLA
-fusion. The Pallas megakernel (ops/pallas/megakernel.py) reuses
-`precompute_bounce0`, `bounce0_direction_update` and the shared ops, and
-mirrors `trace_rays` op-for-op with its own kernel-side bounce loop.
+over SoA ray batches that runs on the CPU (tests) and the GPU via
+jit/XLA fusion. The forward kernel (ops/pallas/megakernel.py) runs
+`precompute_bounce0` and `trace_rays` themselves on per-block pixel
+vectors, so the two compute the same ops.
 
 Behavior contract (reference = shader.frag:471-528):
 
@@ -56,7 +56,7 @@ class RenderConfig:
     reflections_amount: int = 4
     small_indent: float = 0.005
     light_coefficient: float = 1.0
-    # "poly" (TPU-fastest: polynomial inverse-CDF, <5e-6 error),
+    # "poly" (polynomial inverse-CDF, <5e-6 error; the default),
     # "kepler" (Halley iterations), "newton" (reference-exact loop).
     sampler_method: str = "poly"
     # Halley iterations for the Kepler inverse-CDF; 2 already reaches the
@@ -72,11 +72,6 @@ class RenderConfig:
     #    image is bit-identical for ANY sharding of pixels/samples
     #    (SURVEY §4.6 determinism-across-devices requirement).
     rng_mode: str = "sequential"
-    # Pallas megakernel bounce-loop structure: "fori" (lax.fori_loop,
-    # ~5x faster Mosaic compiles on heavy scenes) or "unroll" (fully
-    # unrolled bounces). Identical images; the jnp pipeline always uses
-    # the unrolled break-form (it must also support sequential RNG).
-    bounce_loop: str = "fori"
     # Scene intersection implementation: "fast" (fused dist-fold +
     # deferred winner resolve, models/scene.py:intersect_scene_fast) or
     # "spec" (literal per-primitive closest-fold; mask edges can differ
@@ -84,31 +79,16 @@ class RenderConfig:
     intersect: str = "fast"
     # Rematerialize each sample's trace in the backward pass
     # (jax.checkpoint): the gradient recomputes ray trajectories instead
-    # of storing every bounce's ray state per sample — the HBM-friendly
-    # choice on TPU. Forward-only cost: none.
+    # of storing every bounce's ray state per sample, so device memory
+    # holds one sample's residuals at a time. Forward-only cost: none.
     remat: bool = True
-    # Pallas tile height in sublanes (tile = tile_sublanes x 128 pixels).
-    # Larger tiles amortize per-program overhead (scene unpack from SMEM,
-    # grid bookkeeping) over more pixels at the cost of VMEM registers;
-    # 32 measured fastest on TPU v5e (bench.py sweep: 8->337, 16->488,
-    # 32->526, 64->495 Mray/s on room-with-sphere 1280x720x8sppx4b;
-    # re-confirmed round 4: 8->0.99, 16->1.35, 32->1.58, 64->1.39 Gray/s).
-    tile_sublanes: int = 32
-    # Pixel tiles rendered SEQUENTIALLY by one grid program (bit-identical
-    # for any value — pixel coords/RNG derive from the global tile index).
-    # Measured NEUTRAL-to-slightly-worse on v5e (room headline, T=1/2/4/
-    # 8/16 -> 1.59/1.52/1.56/1.54/1.51 Gray/s): the per-program scene
-    # unpack is NOT a recoverable overhead — the tile_sublanes=8 -> 32
-    # gain comes from intra-op latency hiding (each (32,128) op issues 4
-    # vreg-ops back-to-back), not from amortizing program setup. Kept as
-    # an ablation switch (tools/fwd_ablate.py); production default 1.
-    tiles_per_program: int = 1
     # Static zero-component hints for hyperplane normals (fast intersect
     # only): tuple of per-space (zx, zy, zz, zw) bools from
     # models.scene.plane_norm_hints, or None. Forward-identical (skipped
-    # terms are exact float32 zeros); auto-populated by the production
-    # Pallas entry point, never by the jnp/autodiff path (hinted normal
-    # components would get zero gradients).
+    # terms are exact float32 zeros); derived by the forward kernel's
+    # entry point (megakernel.with_static_hints), never by the
+    # jnp/autodiff path (hinted normal components would get zero
+    # gradients).
     plane_hints: tuple | None = None
     # Static opposite-wall pairs ((pairs, singles) from
     # models.scene.plane_pair_hints): closed-box scenes fold each wall
@@ -120,31 +100,6 @@ class RenderConfig:
     # projection dots to component picks. Same production-only contract
     # as plane_hints (dropped terms would get zero gradients).
     axis_hints: tuple | None = None
-    # Gradient-safe hint mode for the value-and-grad megakernel: when
-    # True, the grad kernel accepts plane_hints/plane_pairs/axis_hints
-    # (forward values stay bit-identical — the dropped terms are exact
-    # float32 zeros) under the documented contract that gradients w.r.t.
-    # every hyperplane NORMAL and every hinted AXIS vector are *defined
-    # zero* (enforced by models.scene.freeze_hint_grads after the kernel,
-    # exactly like diff.make_train_step's param_filter freezes params).
-    # All other gradients (positions, radii, materials, camera) remain
-    # exact: the dropped multiply-adds have exactly-zero coefficients, so
-    # their cotangents w.r.t. the remaining parameters are unchanged.
-    # Use diff.with_frozen_hints(cfg, scene) to derive + enable.
-    freeze_hints: bool = False
-    # Samples per jax.vjp call in the grad kernel's pass-2 reverse sweep
-    # (ops/pallas/gradkernel.py). G > 1 shares ONE envelope recompute
-    # (primary rays + bounce-0 intersection) across G samples' reverse
-    # traces — the envelope's forward AND backward run once per chunk
-    # with the accumulated cotangent (vjp is linear in cotangents, so
-    # gradients equal G=1 up to float re-association; measured <2e-7
-    # rel). Cost: ~G x trace residuals live in VMEM at once. Measured on
-    # v5e (room 1280x720x8spp x4, frozen hints): G=2 +4.5%, G=4 +5%,
-    # G=8 +6.8% grad-kernel step — no spill through G=8, so the
-    # production builder (diff.with_frozen_hints) picks the largest
-    # divisor of ``samples`` that is <= 8. ``samples`` must be divisible
-    # by G.
-    grad_sample_chunk: int = 1
 
 
 def screen_coords(cfg: RenderConfig, row0=0, n_rows: int | None = None):
@@ -208,7 +163,7 @@ class Bounce0(NamedTuple):
     result: "Vec3"        # emission (+escaped env) collected at bounce 0
     throughput: "Vec3"
     o: "Vec4"             # origin stepped to the bounce-0 hit
-    alive_f: jnp.ndarray  # 1.0 where bounce 0 hit (f32: Mosaic carry-safe)
+    alive_f: jnp.ndarray  # 1.0 where bounce 0 hit
     mirrored: "Vec4"      # reflect(primary_d, norm0)
     refl_prob: jnp.ndarray
     norm: "Vec4"
@@ -261,8 +216,8 @@ def bounce0_direction_update(
 ):
     """Bounce 0's per-sample direction update (shader.frag:488-491) — the
     only non-hoistable piece of bounce 0 (see Bounce0). Shared op-for-op
-    by trace_rays and the Pallas megakernel so the jnp/Pallas bit-identity
-    contract has a single implementation. Returns (new_d, counter)."""
+    by the jnp renderer and the forward kernel through trace_rays.
+    Returns (new_d, counter)."""
     alive = pre0.alive_f > 0.5
     u_refl, counter = rng.masked_uniform01(pixel_bits, seed, counter, alive)
     mirror = u_refl <= pre0.refl_prob
@@ -302,10 +257,8 @@ def trace_rays(
     per sample.
     """
     o, d = ray_o, ray_d
-    # (plain zeros, not an astype of pixel_bits: Mosaic has no u32->f32 cast)
     result = Vec3.full(0.0, like=jnp.zeros(pixel_bits.shape, jnp.float32))
     throughput = Vec3.full(1.0, like=result.x)
-    # all-true as a computed compare (Mosaic lacks i1 vector constants)
     alive = jnp.zeros(pixel_bits.shape, jnp.float32) < 1.0
     start_bounce = 0
 
@@ -419,8 +372,7 @@ def render_light_tile(
 ) -> jnp.ndarray:
     """Light for a block of image rows and a block of samples.
 
-    The tiling unit for both device sharding (parallel/mesh.py) and the
-    Pallas grid. Row/sample offsets are absolute, so any partition of
+    The unit of device sharding (parallel/mesh.py). Row/sample offsets are absolute, so any partition of
     (rows x samples) over devices reassembles into the same image
     (requires rng_mode="per_sample" when the sample axis is split).
     Returns (..., n_rows, W, 3) light SUMMED over the local samples
@@ -434,10 +386,10 @@ def render_light_tile(
     if (cfg.plane_hints is not None or cfg.plane_pairs is not None
             or cfg.axis_hints is not None):
         # Hints zero out gradients w.r.t. the hinted components; they
-        # are an internal detail of the (forward-only) Pallas entry
+        # are an internal detail of the (forward-only) kernel entry
         # point and must never reach the jnp/autodiff pipeline.
         raise ValueError(
-            "plane_hints/plane_pairs/axis_hints are Pallas-internal; the "
+            "plane_hints/plane_pairs/axis_hints are kernel-internal; the "
             "jnp renderer (autodiff path) must run without hints"
         )
     if n_rows is None:

@@ -2,7 +2,7 @@
 
 The reference resolves scenes at GLSL compile time by pasting a
 ``scenes/*.frag`` snippet into the shader (executable/README.md:9-11,
-SURVEY §3.5). The TPU-native equivalent: a `Scene` pytree of traced
+SURVEY §3.5). The equivalent here: a `Scene` pytree of traced
 arrays — primitive counts are static (recompile per scene shape, like a
 shader recompile), but every coordinate, radius, color, glow and mirror
 probability is a JAX array, so the whole renderer differentiates w.r.t.
@@ -15,7 +15,7 @@ hypercube, tiger). No acceleration structure, matching the reference
 ("all objects iterated without smart optimizations", shader.frag:433).
 Primitive loops unroll at trace time — counts are tiny (<= 8) and the
 per-primitive parameters broadcast as scalars against the ray batch,
-which on TPU keeps the hot loop pure VPU work.
+which keeps the hot loop pure elementwise work.
 """
 from __future__ import annotations
 
@@ -153,7 +153,7 @@ class AxisHints(NamedTuple):
     Each axis entry is (component_index, sign) or None (not aligned).
 
     Production-forward only (dropped terms would carry zero gradients);
-    derived by the Pallas entry points / engine from the concrete scene
+    derived by the kernel entry points / engine from the concrete scene
     and threaded as a static jit argument via RenderConfig.axis_hints.
     """
 
@@ -216,61 +216,6 @@ def axis_alignment_hints(scene: Scene):
     return hints
 
 
-def freeze_hint_grads(grads: "Scene", plane_hints, axis_hints) -> "Scene":
-    """Zero the gradient leaves frozen by RenderConfig.freeze_hints.
-
-    Contract (see RenderConfig.freeze_hints): under static hints the
-    value-and-grad megakernel's gradients are EXACT for every parameter
-    except (a) hyperplane normals — the pair fold (plane_pair_hints)
-    reparameterizes the wall math so normal cotangents are not those of
-    the unhinted fold — and (b) the axis vectors of hinted composite
-    primitives, whose projection terms were statically dropped. Those
-    parameters are *declared frozen*: this helper zeroes their gradient
-    leaves so optimizers can never follow a hint-distorted direction.
-    ``grads`` is a Scene-structured gradient pytree.
-    """
-
-    def zvec(v: Vec4) -> Vec4:
-        return Vec4(*(jnp.zeros_like(c) for c in v))
-
-    if plane_hints is not None and grads.spaces:
-        grads = grads._replace(
-            spaces=tuple(sp._replace(norm=zvec(sp.norm)) for sp in grads.spaces)
-        )
-    ah = axis_hints
-    if ah is not None:
-        def zcyl(c: geo.CylinderSpec) -> geo.CylinderSpec:
-            return c._replace(axis1=zvec(c.axis1), axis2=zvec(c.axis2))
-
-        if grads.cylinders and any(h is not None for h in ah.cylinders):
-            grads = grads._replace(
-                cylinders=tuple(
-                    zcyl(c) if k < len(ah.cylinders) and ah.cylinders[k] is not None
-                    else c
-                    for k, c in enumerate(grads.cylinders)
-                )
-            )
-        if grads.cylinders_union is not None and ah.cylinders_union is not None:
-            c1, c2 = grads.cylinders_union
-            grads = grads._replace(cylinders_union=(zcyl(c1), zcyl(c2)))
-        if grads.hypercube is not None and ah.hypercube is not None:
-            hc = grads.hypercube
-            grads = grads._replace(
-                hypercube=hc._replace(axes=tuple(zvec(a) for a in hc.axes))
-            )
-        if grads.tiger is not None and ah.tiger is not None:
-            tg = grads.tiger
-            grads = grads._replace(
-                tiger=tg._replace(
-                    inner_cyl1=zcyl(tg.inner_cyl1),
-                    outer_cyl1=zcyl(tg.outer_cyl1),
-                    inner_cyl2=zcyl(tg.inner_cyl2),
-                    outer_cyl2=zcyl(tg.outer_cyl2),
-                )
-            )
-    return grads
-
-
 def _cyl_family_aligned(point: Vec4, pair, ray_o: Vec4, ray_d: Vec4):
     """geo._cyl_family for a family whose two axes are signed unit basis
     vectors ((k1,s1),(k2,s2)): the projections become component zeroing,
@@ -317,10 +262,10 @@ def intersect_scene_fast(
     axis_hints=None,
 ) -> geo.Intersection:
     """Fused closest-hit with identical semantics to `intersect_scene_spec`
-    but restructured for TPU lanes (the production path of trace_rays):
+    but restructured for vector lanes (the production path of trace_rays):
 
     * fold only a masked DISTANCE per candidate (miss -> _FAR) plus a
-      winner index — 3 VPU ops per candidate instead of selecting all 11
+      winner index — 3 ops per candidate instead of selecting all 11
       Intersection fields per fold;
     * resolve the winner's normal and material ONCE after the fold
       (hyperplane normals are +-norm_k, sphere normals recompute from
@@ -417,7 +362,6 @@ def intersect_scene_fast(
         going_up = d_k > 0.0
         up_a = o_k < ca      # below both walls -> nearest going up is a
         down_b = o_k > cb    # above both walls -> nearest going down is b
-        # (bitwise i1 ops, not select_n over bools: Mosaic-safe)
         take_a = (going_up & up_a) | (~going_up & ~down_b)
         p_near = jnp.where(take_a, ca, cb)
         dot_vn = p_near - o_k
@@ -503,7 +447,7 @@ def intersect_scene_fast(
     # Cylinder-family primitives fold their faces DIRECTLY into the
     # global dist-fold (one masked distance each) and defer the family
     # normal/material to the single winner resolve — no intermediate
-    # Intersection record, no double winner-resolution (VERDICT r2 #2).
+    # Intersection record, no double winner-resolution.
     def add_family_face(fam, dist_c, hit_c, flip, r, mat):
         dists.append(jnp.where(hit_c, dist_c, _FAR))
 
@@ -598,7 +542,7 @@ def intersect_scene_fast(
                 resolvers.append(resolve)
 
     if scene.tiger is not None:
-        # 4 merged tiger candidates (VERDICT r4 #4): the two family
+        # 4 merged tiger candidates: the two family
         # projections and the per-radius circle tests are shared as
         # before (geo._family_circle), and additionally each (family,
         # radius)'s outer∈{T,F} face PAIR folds as ONE candidate. Why
@@ -661,9 +605,8 @@ def intersect_scene_fast(
     # winner is the lexicographic (dist, index) minimum, which is
     # associative, so pairwise merging in index order is BITWISE equal
     # to the serial fold while shortening the lane-serial dependency
-    # chain from N-1 to ceil(log2 N) compare+select rounds (the fold is
-    # the latency-heaviest stage of the bounce body — tools/fwd_ablate).
-    if not _FOLD_TREE:  # A/B switch (tools/ab_bench.py); serial reference
+    # chain from N-1 to ceil(log2 N) compare+select rounds.
+    if not _FOLD_TREE:  # A/B switch; serial reference
         best = dists[0]
         idx = jnp.zeros_like(zero, dtype=jnp.int32)
         for k, dk in enumerate(dists[1:], start=1):
@@ -690,13 +633,12 @@ def intersect_scene_fast(
     return _resolve_fold(o, d, zero, dists, resolvers, best, idx)
 
 
+# A/B switches for the dist fold and the winner resolver, both
+# bit-identical in value; which is faster on the GPU is not measured yet
+# (ROADMAP D3). The resolver tree keeps every candidate's field set live
+# until its root, trading register pressure for select depth; the dist
+# fold's per-candidate state is one array.
 _FOLD_TREE = True
-# Resolver selection: the balanced tree was measured SLOWER than the
-# serial masked chain on the room headline (-2%: all candidates' field
-# sets stay live until the tree's root, and the extra register pressure
-# costs more than the saved select depth — the opposite tradeoff from
-# the dist fold, whose per-candidate state is one array). Chain default;
-# the tree stays for A/B.
 _RESOLVE_TREE = False
 
 

@@ -1,6 +1,6 @@
 // Native 4D camera/input state machine.
 //
-// TPU-native counterpart of the reference's camera layer
+// Native counterpart of the reference's camera layer
 // (src/controls.cpp): spherical angles fi/te/psi with the reference's
 // normalization semantics (fi wraps to (-pi, pi], te clamps to
 // [-pi/2, pi/2], psi wraps or clamps, controls.cpp:41-49), basis

@@ -1,6 +1,6 @@
 // Native config parser: `key = value  # comment` files with typed getters.
 //
-// TPU-native counterpart of the reference's C++ config layer
+// Native counterpart of the reference's C++ config layer
 // (src/properties.cpp:12-77): same parse semantics (trim, '#' comments,
 // later duplicates win, hard error on missing/unparseable keys), exposed
 // as a C ABI for ctypes (fourd_ray_tracing_tpu/native/binding.py).

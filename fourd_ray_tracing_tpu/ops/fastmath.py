@@ -1,12 +1,12 @@
-"""Mosaic-safe inverse trigonometry.
+"""Inverse trigonometry and circular functions from elementary ops.
 
-The TPU Pallas lowering (Mosaic) has no acos/asin/atan/atan2 primitives,
-but the render kernel needs arccos for the sun's angular profile
-(shader.frag:454-468 computes the angle between the ray and the sun
-direction). These implementations use only ops Mosaic lowers (mul/add,
-sqrt, select, compare), are float32-accurate to ~1e-7 rad (f32 ulp
-scale), and are used by BOTH the jnp renderer and the Pallas megakernel
-so the two stay bit-identical.
+The render needs arccos for the sun's angular profile (shader.frag:454-468
+computes the angle between the ray and the sun direction) and sin/cos for
+the S^3 sampler. These implementations use only mul/add, sqrt, floor,
+select and compare, which both XLA and the Pallas-Triton kernel lower,
+are float32-accurate to ~1e-7 rad (f32 ulp scale), and are used by BOTH
+the jnp renderer and the forward kernel so the two compute the same
+ops.
 
 atan core: odd minimax polynomial t*P(t^2) on [0, 1] (degree 9 in t^2,
 max error 7.6e-9 in f64, ~7.5e-8 evaluated in f32), range-reduced by
@@ -132,15 +132,17 @@ def sincos_2pi(u: jnp.ndarray):
     The production S^3 sampler's azimuth is a uniform draw in [0, 1)
     scaled by 2*pi (shader.frag:156-158); evaluating both circular
     functions from the TURN fraction skips the generic large-angle
-    argument reduction XLA's sin/cos must perform and costs ~30 VPU ops
+    argument reduction XLA's sin/cos must perform and costs ~30 ops
     for the pair. Max error ~1e-7 (f32 floor) — far inside the
     reference's own 2^-12 sampler tolerance. Used only by the production
     sampler modes ("poly"/"kepler"); the oracle-parity "newton" mode
     keeps jnp.sin/jnp.cos (ops/sampler.py).
     """
     u = jnp.asarray(u, jnp.float32)
-    # Quadrant: n = round(4u); x = u - n/4 in [-1/8, 1/8] (turns).
-    n = jnp.round(u * 4.0)
+    # Quadrant: n = nearest integer to 4u; x = u - n/4 in [-1/8, 1/8]
+    # (turns). floor(v + 0.5) instead of round: Triton has no round, and
+    # at an exact tie both quadrants give the same value.
+    n = jnp.floor(u * 4.0 + 0.5)
     x = u - n * 0.25
     u2 = x * x
     s0 = x * _horner(u2, _SIN2PI_COEFFS)  # sin(2*pi*x)

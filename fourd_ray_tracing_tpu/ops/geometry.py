@@ -1,11 +1,11 @@
 """Ray-primitive intersections in R^4, batched SoA, mask-based.
 
 Each function mirrors the behavior of a reference kernel sub-component
-(SURVEY §2.2, shader.frag:163-400) but is written for TPU lanes: instead
+(SURVEY §2.2, shader.frag:163-400) but is written for vector lanes: instead
 of early returns it computes a ``hit`` mask alongside distance/normal,
 and scenes fold candidates with `closest` (shader.frag:181-185). All
-branches become `jnp.where` selects, so a (8,128) tile of rays maps
-straight onto the VPU with zero divergence cost.
+branches become `jnp.where` selects, so a block of rays runs as
+straight-line elementwise code with no divergent branches.
 
 Primitive parameters are scalars or broadcastable arrays — they stay
 differentiable JAX values, which is what makes the whole renderer
@@ -86,8 +86,6 @@ class Intersection(NamedTuple):
     color: Vec3
 
     def where(self, mask: jnp.ndarray, other: "Intersection") -> "Intersection":
-        # hit select as i1 bitwise ops, not select_n over bools (Mosaic
-        # lowers bool select_n through an unsupported i8->i1 trunc).
         return Intersection(
             (mask & self.hit) | (~mask & other.hit),
             jnp.where(mask, self.dist, other.dist),
@@ -101,9 +99,8 @@ class Intersection(NamedTuple):
 def miss_like(ref: jnp.ndarray) -> Intersection:
     """NOT_INTERSECT (shader.frag:178) broadcast to the ray batch shape.
 
-    The all-false mask is a comparison, not a bool constant: Mosaic can't
-    materialize an i1 vector constant (i8->i1 trunc is unsupported), and
-    XLA folds the compare anyway.
+    The all-false mask is a comparison, not a bool constant (XLA folds
+    the compare anyway).
     """
     zero = jnp.zeros_like(ref)
     return Intersection(
@@ -176,7 +173,7 @@ def sphere_intersection(
     miss_tangent = disc <= 0.0
     s = _safe_sqrt_pos(disc, jnp.logical_not(miss_tangent))
     # ``outer`` is static — resolve at trace time rather than folding a
-    # literal bool into logical_and (Mosaic can't make i1 constants).
+    # literal bool into logical_and.
     use_near = (l > r) if outer else (l < -jnp.inf)
     dist = jnp.where(use_near, b - s, b + s)
     hit = jnp.logical_not(jnp.logical_or(miss_receding, miss_tangent))
@@ -423,7 +420,7 @@ class _CylFamily(NamedTuple):
     unit-direction ``b``, the degenerate-origin mask and the squared
     perpendicular miss distance ``perp2`` that all of a family's circle
     tests share (the tiger runs 4 radius tests per family; only
-    ``r^2`` differs between them, VERDICT r2 item 2)."""
+    ``r^2`` differs between them)."""
 
     po: Vec4           # center - projected origin (in the 2-plane)
     d12: Vec4          # projected (non-unit) direction

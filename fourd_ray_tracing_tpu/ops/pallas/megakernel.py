@@ -1,834 +1,379 @@
-"""Pallas TPU megakernel: the whole path tracer in one VMEM-resident pass.
+"""Forward path-tracing kernel for NVIDIA GPUs (Pallas, Triton route).
 
-The reference's render kernel is one fragment shader invocation per pixel
-(shader.frag:513-528, launched at windows.cpp:45). The TPU-native
-equivalent is one Pallas program per (8, 128) pixel tile: primary-ray
-generation, the unrolled bounce loop with all primitive intersections,
-the counter RNG and the fixed-iteration S^3 sampler all run on VPU
-registers/VMEM for the tile — no HBM traffic between bounces, which is
-what the XLA-fused jnp pipeline (models/renderer.py) cannot fully
-guarantee across its sample `fori_loop`.
+The reference renders with one fragment-shader invocation per pixel
+(shader.frag:513-528, launched at windows.cpp:45), the whole bounce loop
+in registers. This kernel keeps that shape: one Triton program per block
+of ``BLOCK`` pixels, the sample loop and the bounce loop inside the
+program, every ray's state in registers. Nothing is written to device
+memory between bounces or samples; the only output is the mean light,
+three floats per pixel. The jnp pipeline (models/renderer.py) computes
+the same image through XLA, which carries the ray state of the whole
+image between its fusions.
 
 Design:
 
-* The kernel REUSES the shared math: `precompute_bounce0` and
-  `bounce0_direction_update` (models/renderer.py), the geometry ops, the
-  RNG and the samplers are shape-polymorphic pure-jnp functions, so they
-  trace straight into the Mosaic kernel; `_trace_rays_kernel` mirrors
-  renderer.trace_rays op-for-op (per-sample RNG) and adds the
-  fori/unroll bounce-loop choice. (A per-tile early exit was tried and
-  rejected — see the NOTE in _trace_rays_kernel.) One math
-  implementation, two compilation targets — jnp/XLA (oracle, autodiff)
-  and Pallas (production forward).
-* Scene + camera enter as ONE packed (N,) float32 array in SMEM; the
-  static pytree structure is closed over, so inside the kernel the packed
-  scalars are re-assembled into the same Scene/Camera pytrees the jnp
-  renderer consumes. (Scene shape changes recompile — the analogue of the
-  reference's scene-swap shader recompile, SURVEY §3.5.)
-* Pixels are flattened over (view, y, x) and tiled 8x128 = 1024 per
-  program; the grid is (frames, num_tiles) — a (K,) seed vector renders
-  K whole frames per dispatch. Out-of-range lanes (image tail) are
-  clamped to the last pixel and the caller slices them away.
-* RNG streams are keyed by absolute pixel index and absolute sample
-  index (rng_mode="per_sample"), so kernel tiling — like device sharding
-  — never changes the image (SURVEY §4.6). rng_mode="sequential" instead
-  carries the reference's exact per-pixel stream across the sample loop
-  (shader.frag:92) — bit-parity mode at production speed (samples of a
-  lane are sequential within a tile anyway).
+* The kernel reuses the shared math: `precompute_bounce0` and
+  `trace_rays` (models/renderer.py), the geometry ops, the RNG and the
+  samplers are shape-polymorphic jnp functions that trace into the
+  Triton kernel on (BLOCK,) pixel vectors. One math implementation, two
+  compilation targets: jnp/XLA (oracle, autodiff) and Pallas-Triton
+  (forward).
+* Scene and camera enter as ONE packed float32 vector, padded to a power
+  of two; the static pytree structure is closed over and each program
+  reads its scalars back into the Scene/Camera pytrees. A view-batched
+  camera basis comes back as per-view scalars selected per pixel.
+* Pixels flatten over (view, y, x); the grid is (frames, blocks). Both
+  axes write disjoint outputs, so every program is independent. A (K,)
+  seed vector renders K whole frames per launch. The image tail clamps
+  to the last pixel and is sliced away.
+* RNG streams are keyed by absolute pixel coordinate and absolute sample
+  index (rng_mode="per_sample"), so the block size and any device
+  sharding leave the image unchanged (SURVEY §4.6). rng_mode="sequential"
+  carries the reference's per-pixel stream across the sample loop
+  (shader.frag:92), which a program does anyway for its own pixels.
 
-Differentiation: this module is the forward/production path; training
-runs through the value-and-grad megakernel (gradkernel.py), with the
-identical-math jnp pipeline as the autodiff cross-check.
+The kernel is forward-only; training differentiates the jnp pipeline.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from fourd_ray_tracing_tpu.camera import Camera
 from fourd_ray_tracing_tpu.models.renderer import (
     RenderConfig,
-    bounce0_direction_update,
     precompute_bounce0,
     sample_stream_bits,
+    trace_rays,
 )
 from fourd_ray_tracing_tpu.models.scene import (
     Scene,
     axis_alignment_hints,
-    intersect_scene,
     plane_norm_hints,
     plane_pair_hints,
 )
 from fourd_ray_tracing_tpu.ops import rng
-from fourd_ray_tracing_tpu.ops.sampler import direction_from_uniforms
-from fourd_ray_tracing_tpu.ops.sky import final_light, light_to_color
-from fourd_ray_tracing_tpu.ops.vec4 import (
-    Vec3,
-    Vec4,
-    normalize,
-    redirect,
-    reflect,
-)
+from fourd_ray_tracing_tpu.ops.sky import light_to_color
+from fourd_ray_tracing_tpu.ops.vec4 import Vec3, Vec4, normalize
 
-SUBLANES = 8  # default tile height; cfg.tile_sublanes overrides
-LANES = 128
+# Pixels per program and warps per program, chosen by a sweep on an H100
+# (PERF.md): one pixel per thread.
+BLOCK = 128
+NUM_WARPS = 4
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _pad_pow2(x):
+    """Pad a 1-D array with zeros to a power-of-two length (Triton blocks
+    must be powers of two)."""
+    n = int(x.shape[0])
+    return jnp.pad(x, (0, _next_pow2(n) - n))
 
 
 def _pack_pytree(tree):
-    """Flatten a pytree of small f32 arrays into one (N,) array + a
-    rebuild function (treedef and per-leaf shapes are static).
+    """Flatten a pytree of small f32 arrays into one padded vector plus
+    a ``rebuild(ref)`` that reads the scalars back inside the kernel.
 
-    Scalar leaves rebuild as SMEM scalar reads; non-scalar leaves (e.g. a
-    view-batched camera basis of shape (3,)) rebuild by stacking their
-    scalars — all static indexing, so Mosaic folds it away.
-    """
+    Scalar leaves rebuild as scalar loads. A leaf of shape (V,) (a
+    view-batched camera basis component) rebuilds as a tuple of V
+    scalars; see `_view_select`."""
     leaves, treedef = jax.tree_util.tree_flatten(tree)
     leaves = [jnp.asarray(l, jnp.float32) for l in leaves]
     shapes = [l.shape for l in leaves]
-    sizes = [int(np.prod(s)) if s else 1 for s in shapes]
+    if any(len(s) > 1 for s in shapes):
+        raise ValueError(f"kernel parameters must be scalars or vectors: {shapes}")
+    sizes = [s[0] if s else 1 for s in shapes]
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
-    packed = jnp.concatenate([l.reshape(-1) for l in leaves])
+    packed = _pad_pow2(jnp.concatenate([l.reshape(-1) for l in leaves]))
 
-    def rebuild(params_ref):
+    def rebuild(ref):
         vals = []
         for shape, size, off in zip(shapes, sizes, offsets[:-1]):
             if shape == ():
-                vals.append(params_ref[off])
+                vals.append(ref[off])
             else:
-                flat = jnp.stack([params_ref[off + k] for k in range(size)])
-                vals.append(flat.reshape(shape))
+                vals.append(tuple(ref[off + k] for k in range(size)))
         return jax.tree_util.tree_unflatten(treedef, vals)
 
     return packed, rebuild
 
 
-class _RowView:
-    """Static row view of a 2D SMEM params ref: ``_RowView(ref, f)[k]``
-    reads ``ref[f, k]``. Lets one `_pack_pytree` rebuild closure consume
-    per-FRAME parameter rows — the (F, P) packed layout that renders F
-    different SCENES (same pytree structure, different values) in one
-    dispatch (render_light_pallas_multi; the soft-silhouette
-    with/without pair)."""
-
-    def __init__(self, ref, row):
-        self.ref = ref
-        self.row = row
-
-    def __getitem__(self, k):
-        return self.ref[self.row, k]
+def _view_select(c, view, zero):
+    """Per-pixel camera component: a scalar, or a tuple of per-view
+    scalars selected by each pixel's view index
+    (three_window_group.cpp:42-46)."""
+    if not isinstance(c, tuple):
+        return zero + c
+    out = zero + c[0]
+    for v in range(1, len(c)):
+        out = jnp.where(view == v, zero + c[v], out)
+    return out
 
 
-def _trace_rays_kernel(scene, ray_o, ray_d, pixel_bits, seed, counter, cfg,
-                       pre0=None, unroll=False):
-    """trace() for the megakernel: a lax.fori_loop over bounces
-    (``unroll=False`` — one bounce-body compilation, ~5x faster Mosaic
-    compiles on heavy scenes like the tiger's 8-face intersect) or the
-    same body unrolled (``unroll=True`` — fastest steady state).
-
-    Identical math/op-order to renderer.trace_rays, so the image is
-    bit-identical. Both RNG modes are supported: per-sample streams skip
-    the dead final-iteration draws; sequential streams (cfg.rng_mode ==
-    "sequential", the reference's per-pixel counter carried across the
-    sample loop, shader.frag:92) pay them so the NEXT sample's stream
-    matches the reference — inside one tile the samples of a lane are
-    sequential anyway, so bit-parity mode runs at production speed.
-
-    ``pre0``: hoisted sample-invariant bounce-0 state
-    (renderer.precompute_bounce0) — only the per-sample direction update
-    of bounce 0 runs here, then the loop starts at bounce 1.
-    """
-    zero3 = Vec3.full(0.0, like=jnp.zeros(pixel_bits.shape, jnp.float32))
-
-    # NOTE on per-tile bounce early exit (tried, measured, REJECTED):
-    # wrapping the body in a scalar lax.cond that skips all-dead tiles is
-    # bit-exact (every update below is masked by ``alive``), but the
-    # scf.if region costs ~17% on the closed-room headline and gains ~1%
-    # even on sky-heavy env scenes (interleaved A/B, 5 rounds) — the
-    # branch blocks Mosaic's cross-bounce scheduling for more than the
-    # skipped work is worth at these tile sizes.
-    def body(_, state, inter=None):
-        # alive crosses the loop as f32 (Mosaic can't carry i1 vectors
-        # through scf.for) and is re-derived as a mask each iteration.
-        o, d, result, throughput, alive_f, counter = state
-        alive = alive_f > 0.5
-        if inter is None:
-            inter = intersect_scene(
-                scene, o, d, cfg.intersect,
-                plane_hints=cfg.plane_hints, plane_pairs=cfg.plane_pairs,
-                axis_hints=cfg.axis_hints,
+def with_static_hints(cfg: RenderConfig, scene: Scene) -> RenderConfig:
+    """Derive the fast fold's static hints (hyperplane zero components,
+    wall pairs, axis alignment) from a CONCRETE scene. Forward-identical
+    (the dropped terms are exact float32 zeros) but they zero gradients,
+    so only the forward kernel uses them. Inside jit the scene is a
+    tracer, nothing derives and ``cfg`` comes back unchanged."""
+    if cfg.intersect != "fast":
+        return cfg
+    if cfg.plane_hints is None:
+        hints = plane_norm_hints(scene)
+        if hints is not None:
+            cfg = dataclasses.replace(
+                cfg, plane_hints=hints,
+                plane_pairs=plane_pair_hints(scene, hints),
             )
-
-        if scene.environment is not None and scene.environment.enabled:
-            escaped = jnp.logical_and(alive, jnp.logical_not(inter.hit))
-            env = final_light(scene.environment, d)
-            result = result + (throughput * env).where(escaped, zero3)
-
-        alive = jnp.logical_and(alive, inter.hit)
-        result = result + (inter.color * inter.glow * throughput).where(alive, zero3)
-        throughput = (throughput * inter.color).where(alive, throughput)
-
-        new_o = o + d * inter.dist + inter.norm * jnp.float32(cfg.small_indent)
-        o = new_o.where(alive, o)
-
-        u_refl, counter = rng.masked_uniform01(pixel_bits, seed, counter, alive)
-        mirror = u_refl <= inter.refl_prob
-        diffuse = jnp.logical_and(alive, jnp.logical_not(mirror))
-        u_w, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
-        u_z, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
-        u_fi, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
-        rand_dir = direction_from_uniforms(
-            u_w, u_z, u_fi, method=cfg.sampler_method,
-            kepler_iters=cfg.sampler_iters,
-        )
-
-        mirrored = reflect(d, inter.norm)
-        scattered = redirect(rand_dir, inter.norm)
-        d = mirrored.where(mirror, scattered).where(alive, d)
-        return o, d, result, throughput, jnp.where(alive, 1.0, 0.0), counter
-
-    def tail(state, inter=None):
-        # Final bounce, shade-only: the direction update (Bernoulli +
-        # sampler draws) is dead on the last iteration. Per-sample RNG
-        # streams don't carry across samples, so skipping the draws
-        # leaves the image bit-identical while saving a full sampler+
-        # RNG+reflect/redirect evaluation per ray. Sequential streams DO
-        # carry (shader.frag:92): advance the counters exactly like the
-        # reference's dead draws (renderer.trace_rays does the same).
-        o, d, result, throughput, alive_f, counter = state
-        alive = alive_f > 0.5
-        if inter is None:
-            inter = intersect_scene(
-                scene, o, d, cfg.intersect,
-                plane_hints=cfg.plane_hints, plane_pairs=cfg.plane_pairs,
-                axis_hints=cfg.axis_hints,
-            )
-        if scene.environment is not None and scene.environment.enabled:
-            escaped = jnp.logical_and(alive, jnp.logical_not(inter.hit))
-            env = final_light(scene.environment, d)
-            result = result + (throughput * env).where(escaped, zero3)
-        alive = jnp.logical_and(alive, inter.hit)
-        result = result + (inter.color * inter.glow * throughput).where(alive, zero3)
-        if cfg.rng_mode == "sequential":
-            u_refl, counter = rng.masked_uniform01(
-                pixel_bits, seed, counter, alive
-            )
-            diffuse = jnp.logical_and(alive, u_refl > inter.refl_prob)
-            for _ in range(3):
-                _, counter = rng.masked_uniform01(
-                    pixel_bits, seed, counter, diffuse
-                )
-        return result, counter
-
-    ones = jnp.ones(pixel_bits.shape, jnp.float32)
-    start = 0
-    if pre0 is not None:
-        if cfg.reflections_amount == 0:
-            # Shade-only final bounce, entirely precomputed per pixel —
-            # but a sequential stream still pays the reference's dead
-            # final-iteration draws (renderer.trace_rays pre0 branch).
-            if cfg.rng_mode == "sequential":
-                alive0 = pre0.alive_f > 0.5
-                u_refl, counter = rng.masked_uniform01(
-                    pixel_bits, seed, counter, alive0
-                )
-                diffuse0 = jnp.logical_and(alive0, u_refl > pre0.refl_prob)
-                for _ in range(3):
-                    _, counter = rng.masked_uniform01(
-                        pixel_bits, seed, counter, diffuse0
-                    )
-            return pre0.result, counter
-        # Bounce 0's per-sample direction update (everything else is in
-        # pre0); one shared implementation with renderer.trace_rays.
-        d, counter = bounce0_direction_update(
-            pre0, ray_d, pixel_bits, seed, counter, cfg
-        )
-        state = (pre0.o, d, pre0.result, pre0.throughput, pre0.alive_f, counter)
-        start = 1
-    else:
-        state = (ray_o, ray_d, zero3, Vec3.full(1.0, like=zero3.x), ones, counter)
-        if cfg.reflections_amount == 0:
-            return tail(state)
-    if unroll:
-        for i in range(start, cfg.reflections_amount):
-            state = body(i, state)
-    else:
-        state = jax.lax.fori_loop(start, cfg.reflections_amount, body, state)
-    return tail(state)
+    if cfg.axis_hints is None:
+        ah = axis_alignment_hints(scene)
+        if ah is not None:
+            cfg = dataclasses.replace(cfg, axis_hints=ah)
+    return cfg
 
 
-def _tile_pixels(cfg: RenderConfig, n_views: int, height: int, width: int, pid):
-    """Tile pixel coordinates for grid program ``pid`` on the tile axis:
-    (scr_x, scr_y, view, valid). Pixels flatten over (view, y, x);
-    out-of-range lanes (image tail) clamp to the last pixel and are
-    marked invalid. Row 0 = top (shader.frag:515-516)."""
-    sublanes = cfg.tile_sublanes
-    tile = sublanes * LANES
-    sub = jax.lax.broadcasted_iota(jnp.int32, (sublanes, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (sublanes, LANES), 1)
-    lin_raw = pid * tile + sub * LANES + lane
-    total = n_views * height * width
-    valid = lin_raw < total
-    lin = jnp.minimum(lin_raw, total - 1)
-
+def _kernel(params_ref, seed_ref, block0_ref, out_r, out_g, out_b, *,
+            rebuild, cfg: RenderConfig, n_views: int, height: int,
+            width: int, block: int):
+    scene, camera = rebuild(params_ref)
+    seed = seed_ref[pl.program_id(0)].astype(jnp.uint32)
+    # block0: global index of this launch's first block (0 on one device,
+    # device_index * blocks_local under sharding). Pixel coordinates and
+    # RNG streams derive from the GLOBAL pixel index.
+    blk = block0_ref[0] + pl.program_id(1)
+    lin = blk * block + jax.lax.iota(jnp.int32, block)
+    lin = jnp.minimum(lin, n_views * height * width - 1)
     view = lin // (height * width)
     rem = lin - view * (height * width)
     py = rem // width
     px = rem - py * width
-
+    # Row 0 = top (shader.frag:515-516).
     scr_x = (px.astype(jnp.float32) + 0.5) / jnp.float32(width)
     scr_y = (py.astype(jnp.float32) + 0.5) / jnp.float32(height)
-    return scr_x, scr_y, view, valid
 
+    zero = jnp.zeros((block,), jnp.float32)
+    pick = lambda v: Vec4(*(_view_select(c, view, zero) for c in v))
+    top, right = pick(camera.top), pick(camera.right)
+    vec_to_mtr, focus = pick(camera.vec_to_mtr), pick(camera.focus)
+    mx = (scr_x - 0.5) * camera.mtr_width
+    my = (0.5 - scr_y) * camera.mtr_height
+    d = normalize(vec_to_mtr + top * my + right * mx)
 
-def _tile_camera(camera, view, n_views: int, tile_zero):
-    """Per-view basis select (three_window_group.cpp:42-46): camera.top /
-    camera.right may carry a leading view axis of static length n_views.
-    Pure jnp of the camera pytree — differentiable, shared with the
-    value-and-grad kernel (gradkernel.py)."""
+    pixel_bits = rng.pixel_stream_bits(scr_x, scr_y)
+    counter0 = rng.init_counter(seed, pixel_bits.shape)
+    # All samples share the primary ray (shader.frag:519): bounce 0's
+    # intersection and shading run once per pixel.
+    pre0 = precompute_bounce0(scene, focus, d, cfg)
 
-    def view_component(c):
-        # scalar + zeros instead of broadcast_to: Mosaic rejects a raw
-        # scalar->vector broadcast of an SMEM-read value.
-        c = jnp.asarray(c, jnp.float32)
-        if c.ndim == 0:
-            return tile_zero + c
-        if n_views == 1:
-            return tile_zero + c[0]
-        out = tile_zero + c[0]
-        for v in range(1, n_views):
-            out = jnp.where(view == v, tile_zero + c[v], out)
-        return out
-
-    top = Vec4(*(view_component(c) for c in camera.top))
-    right = Vec4(*(view_component(c) for c in camera.right))
-    vec_to_mtr = Vec4(*(view_component(c) for c in camera.vec_to_mtr))
-    focus = Vec4(*(view_component(c) for c in camera.focus))
-    return top, right, vec_to_mtr, focus
-
-
-def _kernel(params_ref, seed_ref, tile0_ref, out_ref, *, rebuild,
-            cfg: RenderConfig, n_views: int, height: int, width: int,
-            frame_params: bool = False):
-    # frame_params: params is (F, P) — each frame program renders its OWN
-    # scene row (render_light_pallas_multi). Default: one shared (P,).
-    if frame_params:
-        scene, camera = rebuild(_RowView(params_ref, pl.program_id(0)))
-    else:
-        scene, camera = rebuild(params_ref)
-    # Grid = (frames, tile groups): the frame axis batches whole
-    # accumulation frames (distinct seeds) into ONE dispatch, amortizing
-    # launch overhead on interactive-scale images (VERDICT r2 #3); each
-    # frame program just reads its own seed. Each grid program renders
-    # cfg.tiles_per_program tiles sequentially, amortizing the scene
-    # unpack + per-program bookkeeping (see RenderConfig.tiles_per_program)
-    # over T tiles while the live vector state stays one tile wide.
-    # tile0: global index of this launch's first tile — 0 single-device;
-    # device_index * tiles_local under mesh sharding (the tile axis IS
-    # the shard axis, sharded_render_light_pallas). Pixel coords and RNG
-    # streams derive from the GLOBAL tile index, so sharding never
-    # changes the image (SURVEY §4.6).
-    seed = seed_ref[pl.program_id(0)].astype(jnp.uint32)
-
-    sublanes = cfg.tile_sublanes
-    tpp = cfg.tiles_per_program
-    for j in range(tpp):
-        pid = tile0_ref[0] + pl.program_id(1) * tpp + j
-        scr_x, scr_y, view, _valid = _tile_pixels(
-            cfg, n_views, height, width, pid
-        )
-        tile_zero = jnp.zeros((sublanes, LANES), jnp.float32)
-        top, right, vec_to_mtr, focus = _tile_camera(
-            camera, view, n_views, tile_zero
-        )
-
-        mx = (scr_x - 0.5) * camera.mtr_width
-        my = (0.5 - scr_y) * camera.mtr_height
-        d = normalize(vec_to_mtr + top * my + right * mx)
-
-        pixel_bits = rng.pixel_stream_bits(scr_x, scr_y)
-        counter0 = rng.init_counter(seed, pixel_bits.shape)
-        zero3 = Vec3.full(0.0, like=scr_x * 0.0)
-
-        # Both loop modes share one bounce body (_trace_rays_kernel);
-        # "unroll" just unrolls it at trace time.
-        trace = functools.partial(
-            _trace_rays_kernel, unroll=cfg.bounce_loop != "fori"
-        )
-        # Sample-invariant bounce-0 intersection AND shading, hoisted out
-        # of the sample loop (all samples share the primary ray,
-        # shader.frag:519) — paid once per pixel instead of once per sample.
-        pre0 = precompute_bounce0(scene, focus, d, cfg)
-
-        if cfg.rng_mode == "sequential":
-            # The reference's per-pixel stream carried ACROSS the sample
-            # loop (shader.frag:92): bit-parity mode at production speed —
-            # within a tile each lane's samples are sequential anyway, so
-            # the counter simply rides the fori carry. Sample-axis
-            # sharding is impossible in this mode (the jnp renderer
-            # enforces the same).
-            def sample_body(s, state):
-                acc, counter = state
-                light, counter = trace(
-                    scene, focus, d, pixel_bits, seed, counter, cfg, pre0=pre0
-                )
-                return acc + light, counter
-
-            acc, _ = jax.lax.fori_loop(
-                0, cfg.samples, sample_body, (zero3, counter0)
+    if cfg.rng_mode == "sequential":
+        def sample_body(s, state):
+            acc, counter = state
+            light, counter = trace_rays(
+                scene, focus, d, pixel_bits, seed, counter, cfg, pre0
             )
-        else:
+            return acc + light, counter
 
-            def sample_body(s, acc):
-                bits = sample_stream_bits(pixel_bits, s.astype(jnp.uint32))
-                light, _ = trace(
-                    scene, focus, d, bits, seed, counter0, cfg, pre0=pre0
-                )
-                return acc + light
+        acc, _ = jax.lax.fori_loop(
+            0, cfg.samples, sample_body, (Vec3.full(0.0, like=zero), counter0)
+        )
+    else:
+        def sample_body(s, acc):
+            bits = sample_stream_bits(pixel_bits, s.astype(jnp.uint32))
+            light, _ = trace_rays(
+                scene, focus, d, bits, seed, counter0, cfg, pre0
+            )
+            return acc + light
 
-            acc = jax.lax.fori_loop(0, cfg.samples, sample_body, zero3)
-        inv = 1.0 / jnp.float32(cfg.samples)
-        out_ref[0, j, 0] = acc.x * inv
-        out_ref[0, j, 1] = acc.y * inv
-        out_ref[0, j, 2] = acc.z * inv
+        acc = jax.lax.fori_loop(
+            0, cfg.samples, sample_body, Vec3.full(0.0, like=zero)
+        )
+    inv = 1.0 / jnp.float32(cfg.samples)
+    out_r[...] = acc.x * inv
+    out_g[...] = acc.y * inv
+    out_b[...] = acc.z * inv
+
+
+def _launch(packed, rebuild, seed_arr, block0, n_blocks, cfg, n_views,
+            height, width, interpret, block, num_warps, vma=None):
+    """One kernel launch over ``n_blocks`` pixel blocks starting at global
+    block ``block0``; returns (frames, n_blocks * block, 3) light.
+    ``vma``: the mesh axes the output varies over, when launched inside
+    shard_map (its replication check types the kernel's outputs)."""
+    n_frames = int(seed_arr.shape[0])
+    kernel = functools.partial(
+        _kernel, rebuild=rebuild, cfg=cfg, n_views=n_views, height=height,
+        width=width, block=block,
+    )
+    plane = jax.ShapeDtypeStruct(
+        (n_frames, n_blocks * block), jnp.float32,
+        vma=None if vma is None else frozenset(vma),
+    )
+    spec = pl.BlockSpec((None, block), lambda f, i: (f, i))
+    r, g, b = pl.pallas_call(
+        kernel,
+        grid=(n_frames, n_blocks),
+        out_specs=[spec, spec, spec],
+        out_shape=[plane, plane, plane],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps),
+        interpret=interpret,
+        name="fourd_forward",
+    )(packed, _pad_pow2(seed_arr), jnp.asarray(block0, jnp.int32).reshape(1))
+    return jnp.stack([r, g, b], axis=-1)
+
+
+def _check_platform(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the forward kernel is compiled for NVIDIA GPUs; on "
+            f"{jax.default_backend()!r} pass interpret=True (Pallas "
+            "interpreter) or render with models.renderer.render_light"
+        )
+
+
+def _prepare(camera, cfg, seed):
+    if cfg.rng_mode not in ("per_sample", "sequential"):
+        raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
+    top_x = jnp.asarray(camera.top.x)
+    n_views = int(top_x.shape[0]) if top_x.ndim > 0 else 1
+    seed_arr = jnp.asarray(seed, jnp.uint32).astype(jnp.int32).reshape(-1)
+    return n_views, seed_arr
+
+
+def _to_images(flat, n_views, cfg, frame_batched):
+    """(frames, padded pixels, 3) -> images, tail sliced away."""
+    n_frames = flat.shape[0]
+    flat = flat[:, : n_views * cfg.height * cfg.width]
+    shape = (cfg.height, cfg.width, 3)
+    if n_views > 1:
+        shape = (n_views,) + shape
+    if frame_batched:
+        return flat.reshape((n_frames,) + shape)
+    return flat.reshape(shape)
 
 
 def render_light_pallas(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed,
-    interpret: bool | None = None,
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed, *,
+    interpret: bool = False, block: int = BLOCK, num_warps: int = NUM_WARPS,
 ) -> jnp.ndarray:
     """Sample-averaged light, shape (H, W, 3) or (V, H, W, 3).
 
-    Equal to models.renderer.render_light with rng_mode="per_sample" up
-    to float re-association (same math, same RNG streams, same sampler;
-    bitwise-equal in practice on TPU).
+    Equal to models.renderer.render_light up to float re-association and
+    the ulps of transcendental functions (same math, same RNG streams,
+    same sampler). ``seed`` may be a (K,) vector: K whole frames render
+    in ONE launch and a leading frame axis appears on the result, each
+    frame bit-identical to a scalar-seed call.
 
-    ``seed`` may be a (K,) vector: K whole frames (distinct seeds)
-    render in ONE kernel dispatch — grid (K, tiles) — and a leading
-    frame axis appears on the result. Per-frame values are bit-identical
-    to K scalar-seed calls.
+    ``interpret`` runs the kernel in the Pallas interpreter (how the CPU
+    tests reach it); without it the kernel needs a GPU. ``block`` and
+    ``num_warps`` exist for the block-size sweep and the test that the
+    image does not depend on the block size.
 
-    ``interpret`` runs the kernel in the Pallas interpreter (defaults to
-    True off-TPU so tests cover the kernel on the CPU mesh).
-
-    Production entry point: when the scene is concrete (the normal case —
-    this function is the jit boundary) and no hints were set, hyperplane
-    zero-component hints are derived here so the kernel skips the
-    statically-zero multiply-adds (forward-identical, see
-    scene.plane_norm_hints).
+    When the scene is concrete, the static hints derive here
+    (`with_static_hints`).
     """
-    if cfg.intersect == "fast" and cfg.plane_hints is None:
-        hints = plane_norm_hints(scene)
-        if hints is not None:
-            cfg = dataclasses.replace(
-                cfg, plane_hints=hints,
-                plane_pairs=plane_pair_hints(scene, hints),
-            )
-    if cfg.intersect == "fast" and cfg.axis_hints is None:
-        ah = axis_alignment_hints(scene)
-        if ah is not None:
-            cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return _render_light_pallas_jit(scene, camera, cfg, seed, interpret)
+    cfg = with_static_hints(cfg, scene)
+    return _render_light_jit(scene, camera, cfg, seed, interpret, block,
+                             num_warps)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
-def _render_light_pallas_jit(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    if cfg.rng_mode not in ("per_sample", "sequential"):
-        raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    top_x = jnp.asarray(camera.top.x)
-    n_views = int(top_x.shape[0]) if top_x.ndim > 0 else 1
-    height, width = cfg.height, cfg.width
-
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "interpret", "block", "num_warps")
+)
+def _render_light_jit(scene, camera, cfg, seed, interpret, block, num_warps):
+    _check_platform(interpret)
+    n_views, seed_arr = _prepare(camera, cfg, seed)
     packed, rebuild = _pack_pytree((scene, camera))
-    frame_batched = jnp.ndim(seed) >= 1
-    seed_arr = jnp.asarray(seed, jnp.uint32).astype(jnp.int32).reshape(-1)
-    n_frames = int(seed_arr.shape[0])
-
-    sublanes = cfg.tile_sublanes
-    tile = sublanes * LANES
-    total = n_views * height * width
-    n_tiles = pl.cdiv(total, tile)
-    # Pad the tile count to a tiles_per_program multiple; padded tiles
-    # clamp to the last pixel (all lanes invalid) and are sliced away
-    # with the regular tail below.
-    tpp = min(cfg.tiles_per_program, n_tiles)
-    n_groups = pl.cdiv(n_tiles, tpp)
-    n_tiles = n_groups * tpp
-
-    out = _launch_forward(
-        packed, rebuild, seed_arr, 0, n_tiles, cfg, tpp,
-        n_views, height, width, interpret,
-    )
-
-    # (frames, tiles, 3, sublanes, 128) -> (frames, pixels, 3) -> images
-    flat = out.transpose(0, 1, 3, 4, 2).reshape(n_frames, n_tiles * tile, 3)
-    flat = flat[:, :total]
-    shape = (height, width, 3) if n_views == 1 else (n_views, height, width, 3)
-    if frame_batched:
-        return flat.reshape((n_frames,) + shape)
-    return flat.reshape(shape)
-
-
-def _launch_forward(packed, rebuild, seed_arr, tile0, n_tiles, cfg, tpp,
-                    n_views, height, width, interpret, vma=None):
-    """One forward megakernel launch over ``n_tiles`` tiles starting at
-    global tile index ``tile0``; returns (frames, n_tiles, 3, sublanes,
-    LANES) light tiles. ``packed`` may be (P,) — one scene for every
-    frame — or (F, P): per-frame scene rows (F must equal the seed
-    count; render_light_pallas_multi). ``vma``: mesh axes the output
-    varies over (required by shard_map's replication checker when
-    launching inside it — see sharded_render_light_pallas)."""
-    import dataclasses as _dc
-
-    n_frames = int(seed_arr.shape[0])
-    frame_params = packed.ndim == 2
-    if frame_params and int(packed.shape[0]) != n_frames:
-        raise ValueError(
-            f"per-frame params rows ({packed.shape[0]}) != frames "
-            f"({n_frames})"
-        )
-    sublanes = cfg.tile_sublanes
-    n_groups = n_tiles // tpp
-    tile0_arr = jnp.asarray(tile0, jnp.int32).reshape(1)
-    kernel = functools.partial(
-        _kernel, rebuild=rebuild, cfg=_dc.replace(cfg, tiles_per_program=tpp),
-        n_views=n_views, height=height, width=width,
-        frame_params=frame_params,
-    )
-    shape = (n_frames, n_tiles, 3, sublanes, LANES)
-    if vma is None:
-        out_shape = jax.ShapeDtypeStruct(shape, jnp.float32)
-    else:
-        out_shape = jax.ShapeDtypeStruct(shape, jnp.float32, vma=frozenset(vma))
-    return pl.pallas_call(
-        kernel,
-        grid=(n_frames, n_groups),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tpp, 3, sublanes, LANES),
-            lambda f, i: (f, i, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(packed, seed_arr, tile0_arr)
-
-
-def render_light_pallas_multi(
-    scenes: Sequence[Scene], camera: Camera, cfg: RenderConfig, seed,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    """Render F SAME-STRUCTURE scenes (different parameter values) at ONE
-    shared seed in ONE megakernel dispatch — the grid frame axis carries
-    scenes instead of seeds, each program reading its own packed row
-    ((F, P) SMEM, `_RowView`). Result has a leading scene axis:
-    (F, H, W, 3) or (F, V, H, W, 3); row f is BIT-IDENTICAL to
-    `render_light_pallas(scenes[f], ...)` at the same seed.
-
-    This is the soft-silhouette training pattern (diff.soft_image_loss_
-    pallas): the with/without-object pair renders in one launch instead
-    of two, with the "without" scene expressed by zeroing the object
-    (diff.zero_object) so the structure — and therefore the static
-    hints, derived from scenes[0] — stays shared.
-    """
-    scenes = tuple(scenes)
-    if cfg.intersect == "fast" and cfg.plane_hints is None:
-        hints = plane_norm_hints(scenes[0])
-        if hints is not None:
-            cfg = dataclasses.replace(
-                cfg, plane_hints=hints,
-                plane_pairs=plane_pair_hints(scenes[0], hints),
-            )
-    if cfg.intersect == "fast" and cfg.axis_hints is None:
-        ah = axis_alignment_hints(scenes[0])
-        if ah is not None:
-            cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return _render_light_pallas_multi_jit(scenes, camera, cfg, seed, interpret)
-
-
-def _pack_scene_rows(scenes, camera):
-    """Stack per-scene packed vectors to (F, P); one shared rebuild.
-    All scenes must share the pytree structure and leaf shapes."""
-    ref_struct = jax.tree_util.tree_structure((scenes[0], camera))
-    packs = []
-    for s in scenes:
-        if jax.tree_util.tree_structure((s, camera)) != ref_struct:
-            raise ValueError(
-                "render_light_pallas_multi requires same-structure scenes "
-                "(use diff.zero_object, not drop_object, for the "
-                "without-object scene)"
-            )
-        packs.append(_pack_pytree((s, camera)))
-    packed = jnp.stack([p for p, _ in packs])
-    return packed, packs[0][1]
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
-def _render_light_pallas_multi_jit(
-    scenes, camera: Camera, cfg: RenderConfig, seed,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    if cfg.rng_mode not in ("per_sample", "sequential"):
-        raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    top_x = jnp.asarray(camera.top.x)
-    n_views = int(top_x.shape[0]) if top_x.ndim > 0 else 1
-    height, width = cfg.height, cfg.width
-
-    packed, rebuild = _pack_scene_rows(scenes, camera)
-    n_scenes = len(scenes)
-    seed_arr = jnp.full(
-        (n_scenes,), jnp.asarray(seed, jnp.uint32).astype(jnp.int32),
-        jnp.int32,
-    )
-
-    sublanes = cfg.tile_sublanes
-    tile = sublanes * LANES
-    total = n_views * height * width
-    n_tiles = pl.cdiv(total, tile)
-    tpp = min(cfg.tiles_per_program, n_tiles)
-    n_groups = pl.cdiv(n_tiles, tpp)
-    n_tiles = n_groups * tpp
-
-    out = _launch_forward(
-        packed, rebuild, seed_arr, 0, n_tiles, cfg, tpp,
-        n_views, height, width, interpret,
-    )
-    flat = out.transpose(0, 1, 3, 4, 2).reshape(n_scenes, n_tiles * tile, 3)
-    flat = flat[:, :total]
-    shape = (height, width, 3) if n_views == 1 else (n_views, height, width, 3)
-    return flat.reshape((n_scenes,) + shape)
+    n_blocks = pl.cdiv(n_views * cfg.height * cfg.width, block)
+    flat = _launch(packed, rebuild, seed_arr, 0, n_blocks, cfg, n_views,
+                   cfg.height, cfg.width, interpret, block, num_warps)
+    return _to_images(flat, n_views, cfg, jnp.ndim(seed) >= 1)
 
 
 def sharded_render_light_pallas(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed, mesh,
-    interpret: bool | None = None,
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed, mesh, *,
+    interpret: bool = False,
 ) -> jnp.ndarray:
-    """Sample-averaged light with the megakernel's TILE axis sharded over
-    every device of ``mesh`` — the multi-chip production forward
-    (SURVEY §2.4: fragment-shader SIMT -> Pallas megakernel + shard_map;
-    windows.cpp:45).
-
-    Mirrors gradkernel.sharded_loss_and_grad_pallas's tile0 scheme: each
-    device launches the kernel on its contiguous block of pixel tiles
-    (tile0 = device_index * tiles_local; pixel coords and RNG streams
-    derive from the GLOBAL tile index), so the assembled image is
-    BIT-IDENTICAL to the single-device kernel for any mesh shape
-    (tests/test_sharding.py::test_sharded_megakernel_matches_single_device).
-    The tile count pads up to a device multiple; padding tiles render
-    clamped pixels that the tail slice discards. The per-device outputs
-    stay sharded (one all_gather at the host assembles the image only
-    when the caller materializes it).
-
-    Same seed semantics as render_light_pallas (a (K,) seed vector
-    renders K frames per launch).
-    """
-    if cfg.intersect == "fast" and cfg.plane_hints is None:
-        hints = plane_norm_hints(scene)
-        if hints is not None:
-            cfg = dataclasses.replace(
-                cfg, plane_hints=hints,
-                plane_pairs=plane_pair_hints(scene, hints),
-            )
-    if cfg.intersect == "fast" and cfg.axis_hints is None:
-        ah = axis_alignment_hints(scene)
-        if ah is not None:
-            cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return _sharded_render_light_pallas_jit(
-        scene, camera, cfg, seed, mesh, interpret
-    )
+    """`render_light_pallas` with the BLOCK axis sharded over every
+    device of ``mesh``: each device launches the kernel on its contiguous
+    range of pixel blocks (block0 = device_index * blocks_local). Pixel
+    coordinates and RNG streams derive from the global block index, so
+    the image is bit-identical to the one-device kernel for any mesh
+    shape. The block count pads up to a device multiple; padding blocks
+    render clamped pixels that the tail slice discards."""
+    cfg = with_static_hints(cfg, scene)
+    return _sharded_render_light_jit(scene, camera, cfg, seed, mesh, interpret)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "interpret"))
-def _sharded_render_light_pallas_jit(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed, mesh,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    if cfg.rng_mode not in ("per_sample", "sequential"):
-        raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    top_x = jnp.asarray(camera.top.x)
-    n_views = int(top_x.shape[0]) if top_x.ndim > 0 else 1
-    height, width = cfg.height, cfg.width
+def _sharded_render_light_jit(scene, camera, cfg, seed, mesh, interpret):
+    from jax.sharding import PartitionSpec as P
 
+    _check_platform(interpret)
+    n_views, seed_arr = _prepare(camera, cfg, seed)
     packed, rebuild = _pack_pytree((scene, camera))
-    frame_batched = jnp.ndim(seed) >= 1
-    seed_arr = jnp.asarray(seed, jnp.uint32).astype(jnp.int32).reshape(-1)
-    n_frames = int(seed_arr.shape[0])
-
-    sublanes = cfg.tile_sublanes
-    tile = sublanes * LANES
-    total = n_views * height * width
-    n_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
-    n_tiles = pl.cdiv(total, tile)
-    tpp = min(cfg.tiles_per_program, n_tiles)
-    # Tiles per device: a tiles_per_program multiple, padded up to cover
-    # the image across n_dev devices.
-    tiles_local = pl.cdiv(pl.cdiv(n_tiles, n_dev), tpp) * tpp
-    n_tiles = tiles_local * n_dev
-
-    from jax.sharding import PartitionSpec as P
-
     axes = tuple(mesh.axis_names)
+    n_dev = int(np.prod([mesh.shape[a] for a in axes]))
+    n_blocks = pl.cdiv(n_views * cfg.height * cfg.width, BLOCK)
+    blocks_local = pl.cdiv(n_blocks, n_dev)
 
     def local(packed, seed_arr):
-        # Linear device index over the whole mesh = global tile offset.
+        # Linear device index over the whole mesh = global block offset.
         idx = jax.lax.axis_index(axes[0])
         for a in axes[1:]:
             idx = idx * mesh.shape[a] + jax.lax.axis_index(a)
-        return _launch_forward(
-            packed, rebuild, seed_arr, idx * tiles_local, tiles_local,
-            cfg, tpp, n_views, height, width, interpret, vma=axes,
-        )
+        # Every operand varies over the mesh like block0 does.
+        packed, seed_arr = jax.lax.pcast((packed, seed_arr), axes, to="varying")
+        return _launch(packed, rebuild, seed_arr, idx * blocks_local,
+                       blocks_local, cfg, n_views, cfg.height, cfg.width,
+                       interpret, BLOCK, NUM_WARPS, vma=axes)
 
-    # check_vma=False: jax 0.9.0's replication checker trips INSIDE
-    # pallas lowering on the mixed replicated-params/varying-tile0
-    # operands ("Primitive ... requires varying manual axes to match ...
-    # pass check_vma=False"). Pinned: tools/repro_check_vma.py (minimal
-    # repro) + tests/test_sharding.py::test_check_vma_workaround_still_
-    # needed (strict xfail — goes red when a jax upgrade fixes it, at
-    # which point delete this argument). Semantics covered by the
-    # bit-identity test.
-    out = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(None, axes),  # tile axis sharded over the whole mesh
-        check_vma=False,
-    )(packed, seed_arr)
-
-    flat = out.transpose(0, 1, 3, 4, 2).reshape(n_frames, n_tiles * tile, 3)
-    flat = flat[:, :total]
-    shape = (height, width, 3) if n_views == 1 else (n_views, height, width, 3)
-    if frame_batched:
-        return flat.reshape((n_frames,) + shape)
-    return flat.reshape(shape)
-
-
-def sharded_render_light_pallas_multi(
-    scenes: Sequence[Scene], camera: Camera, cfg: RenderConfig, seed, mesh,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    """`render_light_pallas_multi` with the TILE axis sharded over every
-    device of ``mesh`` (same tile0 scheme as sharded_render_light_pallas)
-    — F same-structure scenes, one shared seed, one launch per device.
-    Row f is bit-identical to the single-device multi render."""
-    scenes = tuple(scenes)
-    if cfg.intersect == "fast" and cfg.plane_hints is None:
-        hints = plane_norm_hints(scenes[0])
-        if hints is not None:
-            cfg = dataclasses.replace(
-                cfg, plane_hints=hints,
-                plane_pairs=plane_pair_hints(scenes[0], hints),
-            )
-    if cfg.intersect == "fast" and cfg.axis_hints is None:
-        ah = axis_alignment_hints(scenes[0])
-        if ah is not None:
-            cfg = dataclasses.replace(cfg, axis_hints=ah)
-    return _sharded_render_light_multi_jit(
-        scenes, camera, cfg, seed, mesh, interpret
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh", "interpret"))
-def _sharded_render_light_multi_jit(
-    scenes, camera: Camera, cfg: RenderConfig, seed, mesh,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    top_x = jnp.asarray(camera.top.x)
-    n_views = int(top_x.shape[0]) if top_x.ndim > 0 else 1
-    height, width = cfg.height, cfg.width
-
-    packed, rebuild = _pack_scene_rows(scenes, camera)
-    n_scenes = len(scenes)
-    seed_arr = jnp.full(
-        (n_scenes,), jnp.asarray(seed, jnp.uint32).astype(jnp.int32),
-        jnp.int32,
-    )
-
-    sublanes = cfg.tile_sublanes
-    tile = sublanes * LANES
-    total = n_views * height * width
-    n_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
-    n_tiles = pl.cdiv(total, tile)
-    tpp = min(cfg.tiles_per_program, n_tiles)
-    tiles_local = pl.cdiv(pl.cdiv(n_tiles, n_dev), tpp) * tpp
-    n_tiles = tiles_local * n_dev
-
-    from jax.sharding import PartitionSpec as P
-
-    axes = tuple(mesh.axis_names)
-
-    def local(packed, seed_arr):
-        idx = jax.lax.axis_index(axes[0])
-        for a in axes[1:]:
-            idx = idx * mesh.shape[a] + jax.lax.axis_index(a)
-        return _launch_forward(
-            packed, rebuild, seed_arr, idx * tiles_local, tiles_local,
-            cfg, tpp, n_views, height, width, interpret, vma=axes,
-        )
-
-    # check_vma=False: see sharded_render_light_pallas (pinned by
-    # tools/repro_check_vma.py + the strict-xfail guard test).
-    out = jax.shard_map(
+    # The compiled kernel passes shard_map's replication check. The Pallas
+    # interpreter (jax 0.9.0, pallas/hlo_interpreter.py) does not: it
+    # slices the kernel's refs with grid indices that do not vary over
+    # the mesh, so interpreted runs switch the check off.
+    flat = jax.shard_map(
         local, mesh=mesh, in_specs=(P(), P()), out_specs=P(None, axes),
-        check_vma=False,
+        check_vma=not interpret,
     )(packed, seed_arr)
-
-    flat = out.transpose(0, 1, 3, 4, 2).reshape(n_scenes, n_tiles * tile, 3)
-    flat = flat[:, :total]
-    shape = (height, width, 3) if n_views == 1 else (n_views, height, width, 3)
-    return flat.reshape((n_scenes,) + shape)
+    return _to_images(flat, n_views, cfg, jnp.ndim(seed) >= 1)
 
 
-def sharded_render_image_pallas(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed, mesh,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    """Tone-mapped mesh-sharded megakernel render (see
-    sharded_render_light_pallas)."""
+def _tonemap(light, cfg: RenderConfig):
+    color = light_to_color(
+        Vec3(light[..., 0], light[..., 1], light[..., 2]),
+        jnp.float32(cfg.light_coefficient),
+    )
+    return color.stack(axis=-1)
+
+
+def render_image_pallas(scene: Scene, camera: Camera, cfg: RenderConfig,
+                        seed, *, interpret: bool = False) -> jnp.ndarray:
+    """Tone-mapped image via the kernel (shader.frag:522-527). A (K,)
+    ``seed`` vector renders K frames in one launch."""
+    light = render_light_pallas(scene, camera, cfg, seed, interpret=interpret)
+    return _tonemap(light, cfg)
+
+
+def sharded_render_image_pallas(scene: Scene, camera: Camera,
+                                cfg: RenderConfig, seed, mesh, *,
+                                interpret: bool = False) -> jnp.ndarray:
+    """Tone-mapped mesh-sharded kernel render
+    (see sharded_render_light_pallas)."""
     light = sharded_render_light_pallas(scene, camera, cfg, seed, mesh,
-                                        interpret)
-    color = light_to_color(
-        Vec3(light[..., 0], light[..., 1], light[..., 2]),
-        jnp.float32(cfg.light_coefficient),
-    )
-    return color.stack(axis=-1)
+                                        interpret=interpret)
+    return _tonemap(light, cfg)
 
 
-def render_image_pallas(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed
-) -> jnp.ndarray:
-    """Tone-mapped image via the megakernel (shader.frag:522-527).
-    A (K,) ``seed`` vector renders K frames in one dispatch (leading
-    frame axis on the result)."""
-    light = render_light_pallas(scene, camera, cfg, seed)
-    color = light_to_color(
-        Vec3(light[..., 0], light[..., 1], light[..., 2]),
-        jnp.float32(cfg.light_coefficient),
-    )
-    return color.stack(axis=-1)
-
-
-# Engine capability flag: a (K,) seed vector batches K frames/dispatch.
+# Engine capability flag: a (K,) seed vector batches K frames per launch.
 render_light_pallas.supports_seed_batch = True
 render_image_pallas.supports_seed_batch = True

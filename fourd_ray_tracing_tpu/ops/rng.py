@@ -9,7 +9,7 @@ screen coordinate, the ``call_counter`` advances by ``0x79A010A9`` per
 call, and ``hash`` is a 6-round shift/xor/add mixer. Because the stream
 is indexed by *absolute pixel id* and *call index* — never by any
 execution order — the very same construction is what makes rendering
-deterministic across tiling, vectorization and device sharding on TPU:
+deterministic across tiling, vectorization and device sharding:
 shard the rays any way you like, the image is bit-identical (SURVEY §4.6).
 
 All functions are pure and shape-polymorphic; they run identically in
@@ -100,7 +100,7 @@ def init_counter(seed: jnp.ndarray, shape=()) -> jnp.ndarray:
 def masked_uniform01(pixel_bits, seed, counter, active):
     """uniform01 that only advances counters of ``active`` lanes.
 
-    TPU executes all lanes; the reference's scalar shader only calls
+    Vector code executes all lanes; the reference's scalar shader only calls
     rand() on live code paths. Advancing only active lanes keeps the
     per-lane call index equal to the reference's sequential call count,
     which is what makes the vectorized renderer bit-match the oracle.

@@ -15,10 +15,10 @@ Two inverse-CDF implementations:
   finite-difference Newton do-while loop (shader.frag:141-150), with
   per-lane masked iteration so the vectorized result equals the scalar
   reference lane-for-lane. This is the oracle/test mode. Its
-  data-dependent trip count is hostile to TPU lanes (SURVEY §7 "hard
+  data-dependent trip count is hostile to vector lanes (SURVEY §7 "hard
   parts") — every lane pays for the slowest lane.
 
-* `w_by_volume_kepler` — the TPU-native production mode. Substituting
+* `w_by_volume_kepler` — a fixed-cost production mode. Substituting
   w = cos(x/2) turns the CDF equation into Kepler's equation
 
       x - sin(x) = 2*pi*(1 - v),   x in [0, 2*pi]
@@ -77,14 +77,16 @@ def w_by_volume_newton(v: jnp.ndarray, max_iters: int = 64) -> jnp.ndarray:
 
     def cond(state):
         _, active, it = state
-        return jnp.logical_and(jnp.any(active), it < max_iters)
+        # max over an int mask: Triton lowers reduce_max, not reduce_or.
+        any_active = jnp.max(jnp.where(active, 1, 0)) > 0
+        return jnp.logical_and(any_active, it < max_iters)
 
     w, _, _ = jax.lax.while_loop(cond, body, (w0, active0, jnp.int32(0)))
     return w
 
 
 def _cbrt_nonneg(x: jnp.ndarray) -> jnp.ndarray:
-    """cbrt for x >= 0 via exp(log/3) — Mosaic lacks a cbrt primitive;
+    """cbrt for x >= 0 via exp(log/3) (no cbrt primitive needed);
     double-where keeps the x=0 lane and its gradient finite."""
     pos = x > 0.0
     safe = jnp.exp(jnp.log(jnp.where(pos, x, 1.0)) * (1.0 / 3.0))
@@ -107,7 +109,7 @@ def _solve_kepler_half(c: jnp.ndarray, iters: int) -> jnp.ndarray:
     return x
 
 
-# --- Polynomial inverse CDF (production TPU mode) -------------------------
+# --- Polynomial inverse CDF (the default production mode) -----------------
 #
 # Through the same Kepler substitution w = cos(x/2), x - sin(x) = c,
 # c = 2*pi*(1 - v), the half-range solution w(c) for c in [0, pi] is an
@@ -137,8 +139,8 @@ _W_POLY = tuple(
 
 
 def _div3_u32(i: jnp.ndarray) -> jnp.ndarray:
-    """Approximate unsigned i/3 with shifts/adds only (no integer divide
-    in Mosaic): i/3 = i/4 * sum_k 4^-k; 8 terms leave ~5e-6 relative
+    """Approximate unsigned i/3 with shifts/adds only (no integer
+    divide): i/3 = i/4 * sum_k 4^-k; 8 terms leave ~5e-6 relative
     error — irrelevant for an exponent-trick seed."""
     acc = i >> 2
     t = acc
@@ -152,7 +154,7 @@ def _cbrt_sq_bits(a: jnp.ndarray, iters: int = 3) -> jnp.ndarray:
     """a^(2/3) for a >= 0 via an exponent bit-trick seed for a^(-1/3)
     plus division-free Newton (z' = z*(4 - a*z^3)/3), then a*z*z.
 
-    Transcendental-free (shifts, fma, bitcast only — all Mosaic-native).
+    Transcendental-free (shifts, fma, bitcast only).
     3 iterations: <4e-6 relative (magic 0x548fe000 tuned over
     a in [1e-6, 400]); the render range is a = 36*c^2 <= 36*pi^2 < 356.
     """

@@ -52,8 +52,8 @@ def final_light(env: Environment | None, ray_d: Vec4) -> Vec3:
     # Double-where keeps d(arccos)/dx finite at |cos|=1 (exact sun-center
     # hits would otherwise NaN the scene gradient).
     interior = jnp.abs(cos_dev) < 1.0
-    # fastmath.arccos: Mosaic-safe (no acos primitive on TPU Pallas),
-    # ~1e-7 rad accurate, shared by jnp and Pallas paths.
+    # fastmath.arccos: elementary ops only, ~1e-7 rad accurate, shared
+    # by the jnp and kernel paths.
     dev_safe = arccos(jnp.where(interior, cos_dev, 0.0))
     deviation = jnp.where(
         interior, dev_safe, jnp.where(cos_dev > 0.0, 0.0, jnp.pi)

@@ -1,9 +1,9 @@
 """Structure-of-arrays 4D/3D vector types.
 
 The reference keeps 4-vectors as GLSL ``vec4`` / SFML ``sf::Glsl::Vec4``
-(math helpers at src/util/math.cpp:6-14). On TPU the idiomatic layout is
+(math helpers at src/util/math.cpp:6-14). Here the layout is
 structure-of-arrays: each component is its own array of any shape, so
-every vector op is a plain elementwise VPU op over (8, 128)-tiled data —
+every vector op is a plain elementwise op over pixel-shaped data —
 no gathers, no awkward trailing dims of 4. The same code runs unchanged
 in plain jnp (oracle renderer, any backend) and inside Pallas kernels.
 

@@ -5,18 +5,19 @@ The parallel axes of a path tracer (the transformer DP/SP analogues):
 * ``rays``  — image rows shard across devices (embarrassingly parallel,
   no communication in the forward pass);
 * ``samples`` — samples-per-pixel shard across devices; the per-pixel
-  mean is a `psum` over this axis (the only forward collective, riding
-  ICI).
+  mean is a `psum` over this axis (the only forward collective).
 
 Scene parameters and camera are replicated. Gradients w.r.t. the scene
 flow back through `shard_map`: the psum/replication duality means XLA
-inserts the gradient all-reduce over ICI automatically, overlapped with
-the rest of the backward — exactly the "psum grads over ICI" design of
-SURVEY §7.
+inserts the gradient all-reduce automatically, overlapped with the rest
+of the backward (SURVEY §7). On GPUs XLA hands the collectives to NCCL,
+over NVLink between the cards of one host. Every card reaches every
+other at the same rate, so the mesh is a plain (rays, samples) grid over
+`jax.devices()` with no topology.
 
 Multi-host: `initialize_distributed` wraps jax.distributed.initialize;
-the same mesh code then spans all hosts' devices (DCN between hosts, ICI
-within a slice). Everything here is testable on a CPU mesh via
+the same mesh code then spans all hosts' devices (NCCL between the
+processes). Everything here is testable on a CPU mesh via
 ``--xla_force_host_platform_device_count=8`` (tests/test_sharding.py).
 
 Determinism: the RNG streams are keyed by absolute pixel coordinate and
@@ -26,8 +27,6 @@ its RNG by scr_coord (shader.frag:106-107), per SURVEY §4.6.
 """
 from __future__ import annotations
 
-from dataclasses import replace
-from functools import partial
 from typing import Optional
 
 import jax
@@ -49,9 +48,9 @@ SAMPLES_AXIS = "samples"
 
 
 def initialize_distributed(**kwargs) -> None:
-    """Multi-host init (jax.distributed.initialize), no-op if single-host
-    env vars are absent. DCN coordinates hosts; ICI carries collectives
-    within a slice."""
+    """Multi-process init (jax.distributed.initialize), a no-op unless
+    JAX_COORDINATOR_ADDRESS is set or arguments are given (the
+    coordinator address, process count and process id)."""
     import os
 
     if os.environ.get("JAX_COORDINATOR_ADDRESS") or kwargs:
@@ -117,7 +116,7 @@ def sharded_render_light(
             # sample fori_loop (the carry starts as a replicated zero).
             vary_axes=axes,
         )
-        # The single forward collective: per-pixel sample sum over ICI.
+        # The single forward collective: per-pixel sample sum.
         total = jax.lax.psum(acc, SAMPLES_AXIS)
         return total * (1.0 / jnp.float32(cfg.samples))
 
@@ -143,17 +142,19 @@ def sharded_render_image(
 
 
 def jit_sharded_renderer(cfg: RenderConfig, mesh: Mesh, tonemap: bool = True,
-                         impl: str = "xla"):
+                         impl: str = "auto", interpret: bool = False):
     """jit-compiled sharded renderer: (scene, camera, seed) -> image.
 
-    ``impl="pallas"`` routes through the mesh-sharded production
-    MEGAKERNEL (megakernel.sharded_render_{light,image}_pallas — the
-    tile axis shards over every device, bit-identical to single-device;
-    VERDICT r3 missing #1). The jnp impl ("xla") remains the autodiff
-    path (kernel forward rendering is not differentiated — training uses
-    gradkernel.sharded_loss_and_grad_pallas).
+    ``impl`` as in `engine.resolve_impl`: "pallas" routes through the
+    mesh-sharded forward kernel (megakernel.sharded_render_{light,image}_
+    pallas — its block axis shards over every device, bit-identical to
+    one device); "xla" through the jnp pipeline sharded over (rays,
+    samples), which is also the autodiff path. ``interpret`` runs the
+    kernel in the Pallas interpreter (CPU tests).
     """
-    if impl == "pallas":
+    from fourd_ray_tracing_tpu.engine import resolve_impl
+
+    if resolve_impl(impl) == "pallas":
         from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
             sharded_render_image_pallas,
             sharded_render_light_pallas,
@@ -161,14 +162,14 @@ def jit_sharded_renderer(cfg: RenderConfig, mesh: Mesh, tonemap: bool = True,
 
         kfn = sharded_render_image_pallas if tonemap else sharded_render_light_pallas
 
-        @partial(jax.jit, static_argnames=())
+        @jax.jit
         def run_kernel(scene, camera, seed):
-            return kfn(scene, camera, cfg, seed, mesh)
+            return kfn(scene, camera, cfg, seed, mesh, interpret=interpret)
 
         return run_kernel
     fn = sharded_render_image if tonemap else sharded_render_light
 
-    @partial(jax.jit, static_argnames=())
+    @jax.jit
     def run(scene, camera, seed):
         return fn(scene, camera, cfg, seed, mesh)
 

@@ -2,15 +2,15 @@
 
 The reference has none (SURVEY §5): its progressive accumulation lives
 in a GL texture and dies on exit. Here, long accumulation runs and
-inverse-rendering optimizations save/restore via orbax (single-file
-checkpoints are sufficient per SURVEY §5), with a versioned sidecar
-that turns the two real failure modes into actionable errors instead of
-orbax internals:
+inverse-rendering optimizations save/restore the flattened pytree
+leaves as one ``leaves.npz`` (single-file checkpoints are sufficient
+per SURVEY §5), with a versioned sidecar that turns the two real
+failure modes into actionable errors:
 
 * **Structure drift** — restoring into a differently-shaped pytree
-  (scene edited between save and resume, optimizer swapped) used to
-  surface as a deep orbax tree-mismatch; the sidecar records a
-  structure fingerprint and `restore` diffs it first.
+  (scene edited between save and resume, optimizer swapped) would
+  silently misassign leaves; the sidecar records a structure
+  fingerprint and `restore` diffs it first.
 * **Format drift** — a checkpoint written by an older layout raises a
   versioned error instead of silently misreading.
 
@@ -28,8 +28,10 @@ from typing import Any
 import jax
 import numpy as np
 
-FORMAT_VERSION = 2
+# 3: leaves in leaves.npz (versions <= 2 were orbax directories).
+FORMAT_VERSION = 3
 _META = "fourd_ckpt_meta.json"
+_LEAVES = "leaves.npz"
 
 
 def _fingerprint(state: Any) -> str:
@@ -44,12 +46,11 @@ def _fingerprint(state: Any) -> str:
 def save(path: str | Path, state: Any) -> None:
     """Save a pytree (accumulation image, frame counter, optimizer
     state...) plus the versioned structure sidecar."""
-    import orbax.checkpoint as ocp
-
     path = Path(path).absolute()
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, state, force=True)
-    ckptr.wait_until_finished()
+    path.mkdir(parents=True, exist_ok=True)
+    leaves = jax.tree_util.tree_leaves(state)
+    np.savez(path / _LEAVES,
+             **{f"leaf_{i}": np.asarray(l) for i, l in enumerate(leaves)})
     (path / _META).write_text(json.dumps({
         "format_version": FORMAT_VERSION,
         "structure": _fingerprint(state),
@@ -60,10 +61,7 @@ def save(path: str | Path, state: Any) -> None:
 def restore(path: str | Path, like: Any) -> Any:
     """Restore a pytree saved by `save`; ``like`` supplies
     structure/shapes. Raises ValueError with a structural diff hint when
-    ``like`` does not match what was saved (instead of an orbax
-    internals traceback)."""
-    import orbax.checkpoint as ocp
-
+    ``like`` does not match what was saved."""
     path = Path(path).absolute()
     meta_path = path / _META
     if meta_path.exists():
@@ -73,6 +71,12 @@ def restore(path: str | Path, like: Any) -> Any:
                 f"checkpoint at {path} has format_version "
                 f"{meta['format_version']}, newer than this build's "
                 f"{FORMAT_VERSION} — upgrade the package to restore it"
+            )
+        if meta.get("format_version", 1) < FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint at {path} has format_version "
+                f"{meta.get('format_version', 1)} (an orbax directory); "
+                f"this build reads format {FORMAT_VERSION} only"
             )
         want = _fingerprint(like)
         if meta.get("structure") not in (None, want):
@@ -85,11 +89,10 @@ def restore(path: str | Path, like: Any) -> Any:
                 "rebuild the matching pytree (same scene structure, same "
                 "optimizer) or start fresh."
             )
-    ckptr = ocp.StandardCheckpointer()
-    target = jax.tree.map(
-        lambda x: jax.ShapeDtypeStruct(np.shape(x), np.asarray(x).dtype), like
-    )
-    return ckptr.restore(path, target)
+    like_leaves, treedef = jax.tree_util.tree_flatten(like)
+    with np.load(path / _LEAVES) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(like_leaves))]
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 def save_train_state(path: str | Path, scene_vec, opt_state, step: int) -> None:

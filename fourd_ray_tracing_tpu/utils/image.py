@@ -1,6 +1,6 @@
 """Minimal PNG writer (no external imaging deps).
 
-The reference displays frames in SFML windows; headless TPU hosts write
+The reference displays frames in SFML windows; headless GPU hosts write
 frames to disk instead. Plain zlib-deflated 8-bit RGB PNG.
 """
 from __future__ import annotations
@@ -52,3 +52,25 @@ def encode_png(img: np.ndarray, compress_level: int = 6) -> bytes:
 def write_png(path: str | Path, img: np.ndarray) -> None:
     """Write an (H, W, 3) float [0,1] or uint8 array as a PNG file."""
     Path(path).write_bytes(encode_png(img))
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Decode a PNG written by `write_png` (8-bit RGB, one IDAT chunk,
+    filter 0 on every row) back to an (H, W, 3) uint8 array."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        chunks[tag] = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, ctype) != (8, 2):
+        raise ValueError(f"{path}: not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: rows use a PNG filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3).copy()

@@ -1,8 +1,8 @@
-"""Live progressive-accumulation preview over HTTP (VERDICT r3 #8).
+"""Live progressive-accumulation preview over HTTP.
 
 The reference is an on-screen app: you WATCH the accumulation converge
 in an SFML window at up to max_fps (src/main.cpp:79-106,
-src/windows/windows.cpp:24-47). The TPU-native host is headless, so the
+src/windows/windows.cpp:24-47). The accelerator host is headless, so the
 presentation layer streams instead: `PreviewServer` serves
 
   /            a tiny HTML page showing the live stream(s), one <img>
@@ -32,7 +32,7 @@ encoded per-connection at compress_level 1 — on a localhost stream
 encode speed beats size.
 
 stdlib-only (http.server + threading): nothing to install, works
-through an SSH port-forward to the TPU host.
+through an SSH port-forward to the GPU host.
 """
 from __future__ import annotations
 

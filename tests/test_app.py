@@ -97,7 +97,7 @@ def test_headless_main_three_views(tiny_config, tmp_path):
 
 
 def test_reference_window_resolutions(tmp_path):
-    """The VERDICT #3 acceptance: the reference's default window config
+    """The reference's default window config
     (window.main 850/7, window.additional 600/10 — properties.txt:6-13)
     yields a 121x75 main PNG and two 60x37 additional PNGs
     (windows.cpp:6-13, 24-28)."""
@@ -388,7 +388,7 @@ def test_capture_fps_overlay_suppression():
 
 
 def test_live_preview_server(tiny_config, tmp_path):
-    """--serve analogue (VERDICT r3 #8): the PreviewServer streams the
+    """--serve analogue: the PreviewServer streams the
     progressive accumulation over HTTP — index page lists every window,
     /frame.png is a valid PNG of the current buffer, and /stream yields
     multipart/x-mixed-replace PNG parts."""
@@ -487,7 +487,7 @@ def test_browser_command_channel(tiny_config, tmp_path):
 
 def test_checkpoint_structure_mismatch_is_actionable(tmp_path):
     """Restoring into a differently-shaped pytree raises a clear
-    ValueError naming the fingerprints (not an orbax internals error)."""
+    ValueError naming the fingerprints (not a misassigned restore)."""
     import pytest as _pytest
 
     state = {"a": np.arange(4, dtype=np.float32), "b": np.float32(2.0)}
@@ -510,20 +510,14 @@ def test_packed_train_state_checkpoint_roundtrip(tmp_path):
     import jax.numpy as jnp
 
     from fourd_ray_tracing_tpu import camera as cam
-    from fourd_ray_tracing_tpu.diff import (
-        make_packed_train_step,
-        with_frozen_hints,
-    )
+    from fourd_ray_tracing_tpu.diff import make_packed_train_step
     from fourd_ray_tracing_tpu.models import library
     from fourd_ray_tracing_tpu.models.renderer import RenderConfig
     from fourd_ray_tracing_tpu.ops.vec4 import Vec4
 
     scene0 = library.sphere_plane_light()
-    cfg = with_frozen_hints(
-        RenderConfig(width=16, height=8, samples=2, reflections_amount=1,
-                     rng_mode="per_sample"),
-        scene0,
-    )
+    cfg = RenderConfig(width=16, height=8, samples=2, reflections_amount=1,
+                       rng_mode="per_sample")
     camera = cam.camera_from_state(
         Vec4.of(0.0, -2.0, 0.0, 0.0),
         cam.CameraAngles(jnp.float32(0), jnp.float32(0), jnp.float32(0)),

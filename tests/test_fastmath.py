@@ -1,4 +1,4 @@
-"""Mosaic-safe inverse trig vs numpy references."""
+"""Elementary-op inverse trig vs numpy references."""
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -74,15 +74,12 @@ def test_two_process_distributed_matches_single_process(multihost_result):
 
 @pytest.mark.slow
 def test_two_process_kernel_path(multihost_result):
-    """The PRODUCTION kernel path across the process boundary: the
-    tile-sharded forward megakernel renders the same image as the jnp
-    pipeline (bit-identity contract -> means agree to re-association)
-    and the tile-sharded value-and-grad kernel produces a usable
-    gradient."""
+    """The forward kernel across the process boundary: its block axis
+    sharded over the global mesh (Pallas interpreter on CPU workers)
+    renders the same image as the jnp pipeline, so the means agree to
+    re-association."""
     want_mean, _ = _expected()
     np.testing.assert_allclose(
         multihost_result["kernel_mean_light"], want_mean, rtol=1e-5
     )
     assert multihost_result["kernel_rays_per_s"] > 0
-    assert np.isfinite(multihost_result["kernel_loss"])
-    assert multihost_result["kernel_grad_norm"] > 0

@@ -1,10 +1,11 @@
 """Production vs the INDEPENDENT oracle (oracle/ package, zero production
 imports) and its checked-in golden images (tests/goldens/*.npz).
 
-This suite breaks the self-referential allclose loop flagged in round 1:
-every comparison here is against a scalar NumPy transcription of
+This suite breaks the self-referential loop of comparing production
+code with itself: every comparison here is against a scalar NumPy
+transcription of
 /root/reference/executable/shader.frag, so a math bug in the shared
-production code (renderer + megakernel import the same geometry/RNG/
+production code (renderer + forward kernel import the same geometry/RNG/
 sampler) now fails CI instead of cancelling out.
 
 Tolerance rationale: the oracle and XLA differ at ulp level in
@@ -161,7 +162,7 @@ def _oracle_signature(oracle_scene, o, d):
 
 
 def _near_decision_boundary(oracle_scene, o, d, eps=3e-4):
-    """Per-flip boundary certificate (VERDICT r4 #8): the ray lies within
+    """Per-flip boundary certificate: the ray lies within
     an eps-band of SOME decision boundary of the intersection function
     iff an eps-perturbation of the ray flips the ORACLE'S OWN answer —
     hit/miss, winning material, a distance jump, or a normal flip. This
@@ -209,7 +210,7 @@ def test_intersect_vs_oracle(scene_name, mode, rng_np):
     certificate: the oracle's own answer flips under an ulp-scale
     perturbation (`_near_decision_boundary`), proving the ray sits on a
     decision edge where float reassociation may legitimately differ —
-    no blanket statistical allowance (VERDICT r4 #8)."""
+    no blanket statistical allowance."""
     o_np, d_np = _random_rays(256, rng_np)
     oracle_scene = oscenes.SCENES[scene_name]()
     want_hit, want_dist, want_norm, want_glow = [], [], [], []
@@ -329,14 +330,16 @@ def test_golden_pathtrace_sequential_stream():
 @pytest.mark.parametrize("scene_name", SCENE_NAMES)
 @pytest.mark.slow
 def test_golden_pathtrace_pallas(scene_name):
-    """The Pallas megakernel against the ORACLE golden — non-circular:
-    even though the kernel shares math with the jnp renderer, the
-    reference here is the independent scalar transcription."""
+    """The forward kernel (Pallas interpreter) against the ORACLE golden
+    — non-circular: even though the kernel shares math with the jnp
+    renderer, the reference here is the independent scalar
+    transcription."""
     from fourd_ray_tracing_tpu.ops.pallas.megakernel import render_light_pallas
 
     got = np.asarray(
         render_light_pallas(library.SCENES[scene_name](), production_camera(),
-                            _b_cfg("per_sample"), np.uint32(SEED))
+                            _b_cfg("per_sample"), np.uint32(SEED),
+                            interpret=True)
     )
     frac, mean = image_stats(got, golden(scene_name, "b_per"))
     assert frac <= 0.10 and mean <= 0.01, f"frac={frac:.2%} mean={mean:.4f}"

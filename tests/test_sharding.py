@@ -57,10 +57,9 @@ def test_sharded_image_bitwise_equals_single_device(shape):
 @pytest.mark.parametrize("shape", [(8, 1), (2, 2)])
 @pytest.mark.slow
 def test_sharded_megakernel_matches_single_device(shape):
-    """The forward MEGAKERNEL sharded over the mesh (tile0 scheme,
-    VERDICT r3 missing #1): bit-identical to the single-device kernel
-    for mesh shapes that do and don't divide the tile count, scalar and
-    frame-batched seeds."""
+    """The forward kernel sharded over the mesh (block0 scheme):
+    bit-identical to the single-device kernel for mesh shapes that do
+    and don't divide the block count, scalar and frame-batched seeds."""
     from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
         render_image_pallas,
         sharded_render_image_pallas,
@@ -68,18 +67,22 @@ def test_sharded_megakernel_matches_single_device(shape):
 
     scene = library.room_with_sphere()
     camera = default_camera()
-    single = np.asarray(render_image_pallas(scene, camera, CFG, np.uint32(77)))
+    single = np.asarray(render_image_pallas(scene, camera, CFG, np.uint32(77),
+                                            interpret=True))
     devices = jax.devices()[: shape[0] * shape[1]]
     m = pmesh.make_mesh(rays=shape[0], samples=shape[1], devices=devices)
     sharded = np.asarray(
-        sharded_render_image_pallas(scene, camera, CFG, np.uint32(77), m)
+        sharded_render_image_pallas(scene, camera, CFG, np.uint32(77), m,
+                                    interpret=True)
     )
     np.testing.assert_array_equal(sharded, single)
     # Frame-batched seeds shard identically.
     seeds = jnp.arange(2, dtype=jnp.uint32) + 5
-    single_b = np.asarray(render_image_pallas(scene, camera, CFG, seeds))
+    single_b = np.asarray(render_image_pallas(scene, camera, CFG, seeds,
+                                              interpret=True))
     sharded_b = np.asarray(
-        sharded_render_image_pallas(scene, camera, CFG, seeds, m)
+        sharded_render_image_pallas(scene, camera, CFG, seeds, m,
+                                    interpret=True)
     )
     np.testing.assert_array_equal(sharded_b, single_b)
 
@@ -142,21 +145,27 @@ def test_view_batched_sharded_render():
     np.testing.assert_allclose(img, single, atol=2e-6)
 
 
-@pytest.mark.xfail(
-    strict=True,
-    reason="jax 0.9.0: shard_map's replication checker rejects pallas "
-    "internals mixing replicated operands with a varying tile0 scalar "
-    "(tools/repro_check_vma.py); the production sharded kernel entries "
-    "pass check_vma=False. When a jax upgrade makes this XPASS, delete "
-    "the workaround (grep check_vma in megakernel.py/gradkernel.py) "
-    "and this test.",
-)
-def test_check_vma_workaround_still_needed():
-    import sys
-    from pathlib import Path
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_jit_sharded_renderer_matches_single_device(impl):
+    """parallel.mesh.jit_sharded_renderer on a 2x2 mesh, both impls,
+    against the one-device render of the same seed: the kernel's block
+    axis shards bit-identically (shard_map with its replication check
+    on); the jnp pipeline's sample psum may re-associate the sum."""
+    from fourd_ray_tracing_tpu.ops.pallas.megakernel import render_image_pallas
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
-    from repro_check_vma import run_repro
-
-    out = run_repro(check_vma=True)  # raises today (see reason)
-    assert out.shape == (2, 4)
+    cfg = RenderConfig(width=16, height=8, samples=2, reflections_amount=1,
+                       rng_mode="per_sample")
+    scene = library.sphere_plane_light()
+    camera = default_camera()
+    m = pmesh.make_mesh(rays=2, samples=2, devices=jax.devices()[:4])
+    run = pmesh.jit_sharded_renderer(cfg, m, impl=impl, interpret=True)
+    got = np.asarray(run(scene, camera, np.uint32(9)))
+    if impl == "pallas":
+        single = jax.jit(lambda s, c, seed: render_image_pallas(
+            s, c, cfg, seed, interpret=True))
+        want = np.asarray(single(scene, camera, np.uint32(9)))
+        np.testing.assert_array_equal(got, want)
+    else:
+        want = np.asarray(jax.jit(lambda s: render_image(scene, camera, cfg, s))(
+            np.uint32(9)))
+        np.testing.assert_allclose(got, want, atol=2e-6)

@@ -11,7 +11,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-import pytest
 
 from fourd_ray_tracing_tpu import camera as cam
 from fourd_ray_tracing_tpu.diff import (
@@ -93,7 +92,7 @@ def test_soft_radius_gradient_matches_fd():
 
 
 def test_inverse_rendering_recovers_position_through_silhouette():
-    """The VERDICT's acceptance test: optimize a sphere POSITION from a
+    """Optimize a sphere POSITION from a
     target image where only the silhouette carries the signal."""
     camera = default_camera()
     true_cx = 0.5
@@ -136,7 +135,7 @@ def test_drop_sphere():
     assert drop_sphere(s, 0).spheres == ()
 
 
-# --- Generalized per-primitive silhouette coverage (VERDICT r2 #5) -----
+# --- Generalized per-primitive silhouette coverage ------------------
 
 def glow_hypercube_scene(cx=0.0):
     """One flat emissive hypercube, black environment: only the
@@ -200,7 +199,7 @@ def test_drop_object_all_kinds():
 
 
 def test_soft_recovers_hypercube_center_through_silhouette():
-    """VERDICT r2 #5 acceptance: optimize the hypercube CENTER from a
+    """Optimize the hypercube CENTER from a
     target image where only the silhouette carries the signal."""
     from fourd_ray_tracing_tpu.diff import soft_image_loss
 
@@ -309,508 +308,47 @@ def test_soft_tiger_center_gradient_points_at_target():
     assert g < -1e-7, g
 
 
-# --- Kernel-path soft training (VERDICT r3 #5) -------------------------------
+# --- Mesh and minibatch soft training -------------------------------------
 
-PS_CFG = RenderConfig(width=32, height=20, samples=1, reflections_amount=0,
+PS_CFG = RenderConfig(width=16, height=8, samples=1, reflections_amount=0,
                       light_coefficient=0.3, rng_mode="per_sample")
 
 
-@pytest.mark.slow
-def test_soft_pallas_matches_jnp_loss_and_fd_grads():
-    """soft_image_loss_pallas (kernel renders + pass-2 light-VJP kernel):
-    the loss tracks the jnp soft loss, and the kernel path's AD gradient
-    matches central finite differences OF THE KERNEL LOSS ITSELF on
-    non-geometric parameters (floor color, lamp glow). Leaf-exact
-    cross-pipeline gradient comparison is deliberately NOT asserted:
-    different compilations legitimately flip ~1-5% of visibility-
-    boundary pixels (tests/helpers.py rationale), and a flipped pixel's
-    path carries a genuinely different — equally correct — estimator
-    gradient. Geometry gradients are covered by the recovery tests
-    below, which drive real optimization through the kernels."""
-    from fourd_ray_tracing_tpu.diff import soft_image_loss, soft_image_loss_pallas
+def test_soft_hyperplane_ref_on_mesh_matches_single_device():
+    """soft_image_loss with a HYPERPLANE object ref shards over a mesh
+    like any other ref (the jnp path has no zero-emulation limit): loss
+    and gradient equal the one-device soft loss up to psum order."""
     from fourd_ray_tracing_tpu.models import library
+    from fourd_ray_tracing_tpu.parallel.mesh import make_mesh
 
-    scene = library.room_with_sphere()
+    scene = library.sphere_plane_light()
     camera = default_camera()
-    cfg = RenderConfig(width=32, height=20, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    target = jnp.asarray(
-        np.random.default_rng(9).uniform(0, 1, (cfg.height, cfg.width, 3)),
-        jnp.float32,
-    )
-    ref = ("spheres", 0)
+    target = jnp.zeros((PS_CFG.height, PS_CFG.width, 3), jnp.float32)
+    mesh = make_mesh(rays=2, samples=1, devices=jax.devices()[:2])
+    ref = ("spaces", 0)
 
-    def loss_k(scene):
-        return soft_image_loss_pallas(scene, camera, cfg, SEED, target, ref, 0.08)
+    def loss(s, m):
+        return soft_image_loss(s, camera, PS_CFG, SEED, target,
+                               edge_width=0.08, mesh=m, object_ref=ref)
 
-    lk, gk = jax.value_and_grad(loss_k)(scene)
-    lj = soft_image_loss(scene, camera, cfg, SEED, target,
-                         object_ref=ref, edge_width=0.08)
-    np.testing.assert_allclose(float(lk), float(lj), rtol=2e-2)
-
-    def with_floor_color_x(v):
-        floor = scene.spaces[0]
-        mat = floor.material._replace(
-            color=floor.material.color._replace(x=v)
-        )
-        return scene._replace(
-            spaces=(floor._replace(material=mat),) + scene.spaces[1:]
-        )
-
-    def with_lamp_glow(v):
-        lamp = scene.spheres[0]
-        return scene._replace(
-            spheres=(lamp._replace(material=lamp.material._replace(glow=v)),)
-            + scene.spheres[1:]
-        )
-
-    eps = 1e-2
-    for make, ad in (
-        (with_floor_color_x, float(gk.spaces[0].material.color.x)),
-        (with_lamp_glow, float(gk.spheres[0].material.glow)),
-    ):
-        x0 = (scene.spaces[0].material.color.x if make is with_floor_color_x
-              else scene.spheres[0].material.glow)
-        fp = float(loss_k(make(x0 + eps)))
-        fm = float(loss_k(make(x0 - eps)))
-        fd = (fp - fm) / (2 * eps)
-        np.testing.assert_allclose(ad, fd, rtol=0.05, atol=1e-5)
+    l1, g1 = jax.jit(jax.value_and_grad(lambda s: loss(s, None)))(scene)
+    ln, gn = jax.jit(jax.value_and_grad(lambda s: loss(s, mesh)))(scene)
+    np.testing.assert_allclose(float(ln), float(l1), rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(gn), jax.tree.leaves(g1)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4,
+                                   atol=1e-7)
 
 
-@pytest.mark.slow
-def test_soft_pallas_recovers_hypercube_center():
-    """The hypercube-center silhouette recovery running entirely through
-    Pallas renders + the light-VJP kernel (the r3 acceptance test for
-    kernel-path soft training)."""
-    from fourd_ray_tracing_tpu.diff import soft_image_loss_pallas
-
-    camera = default_camera()
-    true_cx = 0.4
-    target = render_image(glow_hypercube_scene(cx=true_cx), camera, PS_CFG, SEED)
-
-    def soft(cx):
-        return soft_image_loss_pallas(
-            glow_hypercube_scene(cx=cx), camera, PS_CFG, SEED, target,
-            ("hypercube", None), 0.08,
-        )
-
-    g = jax.jit(jax.grad(soft))
-    assert float(g(jnp.float32(0.0))) < -1e-6
-    cx = jnp.float32(0.0)
-    for _ in range(60):
-        cx = cx - 2.0 * g(cx)
-    assert abs(float(cx) - true_cx) < 0.1, float(cx)
-
-
-@pytest.mark.slow
-def test_soft_pallas_train_step():
-    """make_train_step(impl='pallas', soft_object_ref=...) uses the
-    kernel soft loss and reduces the loss on a sphere-position fit."""
-    from fourd_ray_tracing_tpu.models import library
-
-    camera = default_camera()
-    cfg = RenderConfig(width=32, height=20, samples=1, reflections_amount=0,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    target = render_image(glow_sphere_scene(cx=0.3), camera, cfg, SEED)
+def test_soft_train_step_with_minibatch_frames():
+    """make_train_step(soft_object_ref=..., frames_per_step=2) runs the
+    mean of two soft losses in one jit and moves the object."""
     scene = glow_sphere_scene(cx=0.0)
-
-    def only_center(grads):
-        zeroed = jax.tree_util.tree_map(jnp.zeros_like, grads)
-        keep = zeroed.spheres[0]._replace(center=grads.spheres[0].center)
-        return zeroed._replace(spheres=(keep,))
-
-    opt = optax.adam(0.05)
-    step = make_train_step(cfg, opt, camera, impl="pallas",
-                           soft_object_ref=("spheres", 0),
-                           edge_width=0.08, param_filter=only_center)
-    opt_state = opt.init(scene)
-    losses = []
-    for i in range(15):
-        scene, opt_state, loss, _m = step(scene, opt_state, np.uint32(SEED), target)
-        losses.append(float(loss))
-    assert losses[-1] < losses[0] * 0.6, losses
-
-
-@pytest.mark.slow
-def test_soft_pallas_with_frozen_hints_and_dropped_objects():
-    """soft_image_loss_pallas composes with with_frozen_hints: the
-    without-object render gets statically REMAPPED hints
-    (diff._hints_for_dropped) — dropping a sphere keeps the wall hints,
-    dropping a wall drops its plane_hints row and disables the pair
-    fold. Loss finite + frozen leaves zero + target-param grads flow."""
-    from fourd_ray_tracing_tpu.diff import (
-        soft_image_loss_pallas,
-        with_frozen_hints,
-    )
-    from fourd_ray_tracing_tpu.models import library
-
-    scene = library.room_with_sphere()
     camera = default_camera()
-    # bounces >= 2: at 1 bounce this viewpoint never reaches the lamp
-    # and the room renders black (no environment).
-    cfg = RenderConfig(width=32, height=20, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    cfg = with_frozen_hints(cfg, scene)
-    assert cfg.plane_hints is not None and cfg.plane_pairs is not None
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-
-    for ref in (("spheres", 0), ("spaces", 0)):
-        loss, grads = jax.value_and_grad(
-            lambda s: soft_image_loss_pallas(s, camera, cfg, SEED, target,
-                                             ref, 0.08)
-        )(scene)
-        assert float(loss) > 0.0
-        flat = np.concatenate([
-            np.asarray(l).reshape(-1)
-            for l in jax.tree_util.tree_leaves(grads)
-        ])
-        assert np.isfinite(flat).all()
-        assert np.abs(flat).max() > 1e-8
-        # freeze contract holds through the soft path: every wall
-        # normal's gradient is exactly zero.
-        for sp in grads.spaces:
-            assert all(
-                float(np.abs(np.asarray(c)).max()) == 0.0 for c in sp.norm
-            )
-
-
-def test_zero_object_matches_drop_object():
-    """diff.zero_object (same-structure guaranteed-miss emulation) renders
-    the SAME light as diff.drop_object for every supported kind — the
-    correctness contract of the one-dispatch soft pair. Compared eagerly
-    (one execution order) so the only possible difference would be the
-    zeroed candidate itself."""
-    from fourd_ray_tracing_tpu.diff import drop_object, zero_object
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.models.renderer import render_light
-
-    cfg = RenderConfig(width=16, height=8, samples=1, reflections_amount=1,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    camera = default_camera()
-    cases = [
-        ("room_with_sphere", ("spheres", 0)),
-        ("duocylinder", ("cylinders_union", None)),
-        ("tiger", ("tiger", None)),
-        ("hypercube", ("hypercube", None)),
-    ]
-    with jax.disable_jit():
-        for scene_name, ref in cases:
-            scene = library.SCENES[scene_name]()
-            lz = render_light(zero_object(scene, ref), camera, cfg, SEED)
-            ld = render_light(drop_object(scene, ref), camera, cfg, SEED)
-            np.testing.assert_array_equal(
-                np.asarray(lz), np.asarray(ld), err_msg=f"{scene_name} {ref}"
-            )
-
-
-def test_pallas_render_light_pair_rows_match_single():
-    """Each row of the one-dispatch pair render equals the single-scene
-    megakernel render of that scene at the same seed."""
-    from fourd_ray_tracing_tpu.diff import pallas_render_light_pair, zero_object
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import render_light_pallas
-
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    camera = default_camera()
-    scene = library.room_with_sphere()
-    without = zero_object(scene, ("spheres", 0))
-    pair = pallas_render_light_pair(scene, without, camera, cfg, np.uint32(7))
-    a = render_light_pallas(scene, camera, cfg, np.uint32(7))
-    b = render_light_pallas(without, camera, cfg, np.uint32(7))
-    np.testing.assert_allclose(np.asarray(pair[0]), np.asarray(a), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(pair[1]), np.asarray(b), atol=1e-6)
-
-
-@pytest.mark.slow
-def test_light_vjp_multi_rows_match_single():
-    """render_light_vjp_pallas_multi: each row's scene gradients equal the
-    single-scene light-VJP kernel's; the camera gradient is the rows'
-    sum."""
-    from fourd_ray_tracing_tpu.diff import zero_object
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        render_light_vjp_pallas,
-        render_light_vjp_pallas_multi,
-    )
-
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    camera = default_camera()
-    scene = library.room_with_sphere()
-    without = zero_object(scene, ("spheres", 0))
-    rng = np.random.default_rng(3)
-    cots = jnp.asarray(rng.normal(0, 1, (2, cfg.height, cfg.width, 3)),
-                       jnp.float32)
-
-    (g0, g1), g_cam = render_light_vjp_pallas_multi(
-        (scene, without), camera, cfg, np.uint32(7), cots
-    )
-    s0, c0 = render_light_vjp_pallas(scene, camera, cfg, np.uint32(7), cots[0])
-    s1, c1 = render_light_vjp_pallas(without, camera, cfg, np.uint32(7), cots[1])
-
-    def flat(t):
-        return np.concatenate([
-            np.asarray(l, np.float32).reshape(-1)
-            for l in jax.tree_util.tree_leaves(t)
-        ])
-
-    np.testing.assert_allclose(flat(g0), flat(s0), rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(flat(g1), flat(s1), rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(flat(g_cam), flat(c0) + flat(c1),
-                               rtol=1e-5, atol=1e-7)
-    assert np.abs(flat(g0)).max() > 1e-8
-
-
-@pytest.mark.slow
-def test_soft_pallas_mesh_matches_single_device():
-    """make_train_step(impl='pallas', soft, mesh=...) now runs: the
-    sharded pair (one forward + one VJP dispatch per device, tile0
-    scheme) gives the same loss and updated scene as the single-device
-    pair step (VERDICT r4 #5: the ValueError arm removed)."""
-    from fourd_ray_tracing_tpu.diff import make_train_step
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.parallel.mesh import make_mesh
-
-    scene = library.room_with_sphere()
-    camera = default_camera()
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    target = jnp.asarray(
-        np.random.default_rng(11).uniform(0, 1, (cfg.height, cfg.width, 3)),
-        jnp.float32,
-    )
-    opt = optax.adam(1e-2)
-    mesh = make_mesh(rays=4, samples=2)
-    ref = ("spheres", 0)
-
-    step_1 = make_train_step(cfg, opt, camera, impl="pallas",
-                             soft_object_ref=ref)
-    step_n = make_train_step(cfg, opt, camera, impl="pallas",
-                             soft_object_ref=ref, mesh=mesh)
-    s1, _, loss1, m1 = step_1(scene, opt.init(scene), np.uint32(5), target)
-    sn, _, lossn, mn = step_n(scene, opt.init(scene), np.uint32(5), target)
-    np.testing.assert_allclose(float(lossn), float(loss1), rtol=1e-5)
-    np.testing.assert_allclose(
-        float(mn["grad_norm"]), float(m1["grad_norm"]), rtol=1e-4
-    )
-
-    def flat(t):
-        return np.concatenate([
-            np.asarray(l, np.float32).reshape(-1)
-            for l in jax.tree_util.tree_leaves(t)
-        ])
-
-    np.testing.assert_allclose(flat(sn), flat(s1), rtol=1e-4, atol=1e-7)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize(
-    "scene_name, ref",
-    [
-        ("room_with_sphere", ("spheres", 0)),
-        ("duocylinder", ("cylinders_union", None)),
-        ("tiger", ("tiger", None)),
-        ("hypercube", ("hypercube", None)),
-    ],
-)
-def test_soft_fused_kernel_matches_jnp(scene_name, ref):
-    """The fused one-dispatch soft kernel (round 5): loss bit-matches the
-    jnp soft loss at the same seed and every gradient matches the jnp
-    value_and_grad under the freeze-hints contract — for every
-    zero-emulatable object kind, including the tiger's 8-face fold and
-    the hypercube's paired cells unrolling TWICE (both rows) through the
-    in-kernel vjp."""
-    from fourd_ray_tracing_tpu.diff import (
-        soft_image_loss,
-        soft_image_loss_pallas,
-        with_frozen_hints,
-    )
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.models.scene import freeze_hint_grads
-
-    scene = library.SCENES[scene_name]()
-    camera = default_camera()
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    cfgh = with_frozen_hints(cfg, scene)
-    target = jnp.asarray(
-        np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)),
-        jnp.float32,
-    )
-
-    l_j, g_j = jax.value_and_grad(
-        lambda s: soft_image_loss(s, camera, cfg, np.uint32(SEED), target,
-                                  object_ref=ref, edge_width=0.08)
-    )(scene)
-    l_k, g_k = jax.value_and_grad(
-        lambda s: soft_image_loss_pallas(s, camera, cfgh, np.uint32(SEED),
-                                         target, ref, 0.08)
-    )(scene)
-    # Same estimator, same RNG streams; only float re-association.
-    np.testing.assert_allclose(float(l_k), float(l_j), rtol=1e-5)
-
-    g_jf = freeze_hint_grads(g_j, cfgh.plane_hints, cfgh.axis_hints)
-    for lj, lk in zip(jax.tree_util.tree_leaves(g_jf),
-                      jax.tree_util.tree_leaves(g_k)):
-        a, b = np.asarray(lj, np.float32), np.asarray(lk, np.float32)
-        np.testing.assert_allclose(
-            b, a, rtol=5e-4, atol=5e-6 * max(1.0, float(np.abs(a).max()))
-        )
-
-
-@pytest.mark.slow
-def test_soft_fused_kernel_two_pass_matches_fused():
-    """The fused soft kernel's chunked two-pass branch
-    (grad_sample_chunk < samples): loss bit-matches the fused
-    single-sweep form and gradients agree up to chunk re-association —
-    the high-spp fallback stays correct."""
-    import dataclasses
-
-    from fourd_ray_tracing_tpu.diff import soft_image_loss_pallas
-    from fourd_ray_tracing_tpu.models import library
-
-    scene = library.room_with_sphere()
-    camera = default_camera()
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    target = jnp.asarray(
-        np.random.default_rng(6).uniform(0, 1, (cfg.height, cfg.width, 3)),
-        jnp.float32,
-    )
-    ref = ("spheres", 0)
-
-    def loss_with(cfg_):
-        return jax.value_and_grad(
-            lambda s: soft_image_loss_pallas(s, camera, cfg_, np.uint32(SEED),
-                                             target, ref, 0.08)
-        )(scene)
-
-    l_f, g_f = loss_with(cfg)  # G == samples: fused single-sweep
-    l_2, g_2 = loss_with(dataclasses.replace(cfg, grad_sample_chunk=1))
-    np.testing.assert_array_equal(np.float32(l_2), np.float32(l_f))
-    for a, b in zip(jax.tree_util.tree_leaves(g_f),
-                    jax.tree_util.tree_leaves(g_2)):
-        np.testing.assert_allclose(
-            np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-7
-        )
-
-
-def test_soft_fused_kernel_quick():
-    """Quick-tier smoke of the fused soft kernel: finite loss, gradients
-    flow to the soft sphere's center AND through the coverage-alpha path
-    (radius), and the loss equals the jnp soft loss."""
-    from fourd_ray_tracing_tpu.diff import soft_image_loss, soft_image_loss_pallas
-    from fourd_ray_tracing_tpu.models import library
-
-    scene = library.room_with_sphere()
-    camera = default_camera()
-    cfg = RenderConfig(width=32, height=16, samples=1, reflections_amount=1,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
-    ref = ("spheres", 1) if len(scene.spheres) > 1 else ("spheres", 0)
-
-    l_k, g_k = jax.value_and_grad(
-        lambda s: soft_image_loss_pallas(s, camera, cfg, np.uint32(SEED),
-                                         target, ref, 0.08)
-    )(scene)
-    l_j = soft_image_loss(scene, camera, cfg, np.uint32(SEED), target,
-                          object_ref=ref, edge_width=0.08)
-    np.testing.assert_allclose(float(l_k), float(l_j), rtol=1e-5)
-    sp = g_k.spheres[ref[1]]
-    flat = np.asarray([sp.center.x, sp.center.y, sp.center.z, sp.center.w,
-                       sp.r], np.float32)
-    assert np.isfinite(flat).all()
-    assert np.abs(flat).max() > 0.0
-
-
-def test_soft_zero_map_matches_zero_object_packing():
-    """soft_zero_map's static (index, value) pairs, applied to the
-    packed (scene, camera) vector, reproduce exactly
-    _pack_pytree((zero_object(scene, ref), camera)) — the contract the
-    fused soft kernel's in-kernel without-row relies on — for every
-    zero-emulatable kind, eagerly and under jit tracing."""
-    from fourd_ray_tracing_tpu.diff import zero_object
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import soft_zero_map
-    from fourd_ray_tracing_tpu.ops.pallas.megakernel import _pack_pytree
-
-    camera = default_camera()
-    cases = [
-        ("room_with_sphere", ("spheres", 0)),
-        ("duocylinder", ("cylinders_union", None)),
-        ("tiger", ("tiger", None)),
-        ("hypercube", ("hypercube", None)),
-    ]
-    for scene_name, ref in cases:
-        scene = library.SCENES[scene_name]()
-        zmap = soft_zero_map(scene, camera, ref)
-        packed = np.asarray(_pack_pytree((scene, camera))[0])
-        expect = np.asarray(
-            _pack_pytree((zero_object(scene, ref), camera))[0]
-        )
-        got = packed.copy()
-        for i, v in zmap:
-            got[i] = v
-        np.testing.assert_array_equal(got, expect, err_msg=f"{scene_name}")
-        # Under jit tracing the map must come out identical (it is
-        # computed from the treedef + a concrete template only).
-        traced = {}
-
-        def probe(s, c):
-            traced["zmap"] = soft_zero_map(s, c, ref)
-            return jnp.float32(0.0)
-
-        jax.jit(probe)(scene, camera)
-        assert traced["zmap"] == zmap, scene_name
-
-
-@pytest.mark.slow
-def test_pallas_render_light_pair_sharded_matches_single():
-    """The mesh-sharded pair render (the multi-chip path for CUSTOM
-    jnp losses over a with/without pair — since the round-5 fusion the
-    built-in soft MSE goes through the fused kernel instead): rows
-    bit-match the single-device pair and value_and_grad of a sum-loss
-    matches up to psum re-association."""
-    from fourd_ray_tracing_tpu.diff import (
-        pallas_render_light_pair,
-        pallas_render_light_pair_sharded,
-        zero_object,
-    )
-    from fourd_ray_tracing_tpu.models import library
-    from fourd_ray_tracing_tpu.parallel.mesh import make_mesh
-
-    cfg = RenderConfig(width=32, height=16, samples=2, reflections_amount=2,
-                       light_coefficient=0.3, rng_mode="per_sample")
-    camera = default_camera()
-    scene = library.room_with_sphere()
-    without = zero_object(scene, ("spheres", 0))
-    mesh = make_mesh(rays=4, samples=2)
-
-    pair_1 = pallas_render_light_pair(scene, without, camera, cfg, np.uint32(7))
-    pair_n = pallas_render_light_pair_sharded(
-        scene, without, camera, cfg, np.uint32(7), mesh
-    )
-    np.testing.assert_array_equal(np.asarray(pair_n), np.asarray(pair_1))
-
-    def loss_via(fn):
-        def f(s):
-            return jnp.sum(fn(s) ** 2)
-        return jax.value_and_grad(f)
-
-    l1, g1 = loss_via(
-        lambda s: pallas_render_light_pair(
-            s, zero_object(s, ("spheres", 0)), camera, cfg, np.uint32(7)
-        )
-    )(scene)
-    ln, gn = loss_via(
-        lambda s: pallas_render_light_pair_sharded(
-            s, zero_object(s, ("spheres", 0)), camera, cfg, np.uint32(7), mesh
-        )
-    )(scene)
-    np.testing.assert_allclose(float(ln), float(l1), rtol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(g1),
-                    jax.tree_util.tree_leaves(gn)):
-        np.testing.assert_allclose(
-            np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-7
-        )
+    target = render_image(glow_sphere_scene(cx=0.5), camera, CFG, SEED)
+    opt = optax.adam(0.02)
+    step = make_train_step(CFG, opt, camera, edge_width=0.08,
+                           soft_object_ref=("spheres", 0), frames_per_step=2)
+    new, _, loss, metrics = step(scene, opt.init(scene), np.uint32(SEED),
+                                 target)
+    assert np.isfinite(float(loss)) and float(metrics["grad_norm"]) > 0
+    assert float(new.spheres[0].center.x) > 0.0

@@ -1,9 +1,8 @@
 """Multi-host (multi-process) smoke + scaling harness on CPU devices.
 
-The TPU-native framework scales across hosts with
-`jax.distributed.initialize` (DCN coordinates processes; collectives ride
-ICI within a slice — parallel/mesh.py). Real multi-host hardware isn't
-available in CI, so this script runs N actual OS processes of CPU-backed
+The framework scales across hosts with `jax.distributed.initialize`
+(one coordinator, one global mesh over every process's devices —
+parallel/mesh.py). This script runs N actual OS processes of CPU-backed
 JAX on one machine — the same code path (`jax.distributed`, global mesh
 spanning all processes' devices, psum across process boundaries) with
 the network layer pointed at localhost.
@@ -102,43 +101,32 @@ def worker(args) -> int:
     m = float(mean_light(scene, jnp.uint32(7)))
     gn = float(grad_norm(scene, jnp.uint32(7)))
 
-    # --- The PRODUCTION KERNEL path across the process boundary -------
-    # (VERDICT r3 missing #1 / weak #3: the multi-host artifact must
-    # exercise the kernel that runs on a real slice, not only the jnp
-    # pipeline.) Forward: the megakernel's tile axis sharded over the
-    # global mesh (megakernel.sharded_render_light_pallas — the image is
-    # bit-identical to single-device). Training: the value-and-grad
-    # kernel tile-sharded with ONE psum of loss+grads
-    # (gradkernel.sharded_loss_and_grad_pallas).
-    from fourd_ray_tracing_tpu.ops.pallas.gradkernel import (
-        sharded_loss_and_grad_pallas,
-    )
+    # --- The forward kernel across the process boundary ---------------
+    # Its block axis sharded over the global mesh
+    # (megakernel.sharded_render_light_pallas — the image is
+    # bit-identical to one device), in the Pallas interpreter on these
+    # CPU workers.
     from fourd_ray_tracing_tpu.ops.pallas.megakernel import (
         sharded_render_light_pallas,
     )
 
     def kernel_mean_light(seed):
         return jnp.mean(
-            sharded_render_light_pallas(scene, camera, cfg, seed, mesh)
+            sharded_render_light_pallas(scene, camera, cfg, seed, mesh,
+                                        interpret=True)
         )
 
     km = float(kernel_mean_light(jnp.uint32(7)))
-    target = jnp.zeros((HEIGHT, WIDTH, 3), jnp.float32)
-    import optax as _optax
-
-    kloss, (kg_scene, _) = sharded_loss_and_grad_pallas(
-        scene, camera, cfg, jnp.uint32(7), target, mesh
-    )
-    kgn = float(_optax.global_norm(kg_scene))
 
     # Timing rounds for the scaling report (compile excluded).
     rays = WIDTH * HEIGHT * SAMPLES
 
     def rate(fn):
-        float(fn(jnp.uint32(1)))  # warm; scalar fetch = hard sync
+        jax.block_until_ready(fn(jnp.uint32(1)))  # warm
         t0 = time.perf_counter()
         for k in range(args.frames):
-            out = float(fn(jnp.uint32(k + 2)))
+            out = fn(jnp.uint32(k + 2))
+        jax.block_until_ready(out)
         return rays * args.frames / (time.perf_counter() - t0)
 
     jnp_rate = rate(lambda s: mean_light(scene, s))
@@ -151,8 +139,6 @@ def worker(args) -> int:
         "mean_light": m,
         "grad_norm": gn,
         "kernel_mean_light": km,
-        "kernel_loss": float(kloss),
-        "kernel_grad_norm": kgn,
         "rays_per_s": jnp_rate,
         "kernel_rays_per_s": kernel_rate,
     }))
@@ -199,8 +185,7 @@ def scaling(args) -> int:
     """rays/s at 1 process vs 2 processes (same per-process device count)
     — the harness for the >=90%-linear-to-2-hosts target (BASELINE.md:18).
     On one physical machine the two CPU 'hosts' share cores, so the
-    printed ratio here is a plumbing check; on real multi-host TPU the
-    same command measures the actual scaling."""
+    printed ratio here is a plumbing check, not a scaling measurement."""
     import argparse as _a
 
     results = {}
